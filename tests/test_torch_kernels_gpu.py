@@ -1,0 +1,90 @@
+"""CUDA kernels == their plain torch versions, on the card (bit-exact).
+
+Marked ``gpu``: these need an NVIDIA GPU and nvcc and skip elsewhere.
+Run them on a GPU machine with
+``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+"""
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from falcon_unzip_tpu.seq import SeqBatch
+from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
+from falcon_unzip_tpu_torch.ops import _kernels
+from falcon_unzip_tpu_torch.ops import banded_align as ba
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _batch(W, mode, seed, P=48):
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k in range(P):
+        t = random_genome(int(rng.integers(200, 700)), seed * 1000 + k)
+        src = t if mode == "global" else t[: int(rng.integers(100, len(t)))]
+        qs.append(mutate_read(src, 0.0 if k % 2 else 0.15, rng))
+        ts.append(t)
+    qs.append(qs[0][:0])                                   # n = 0
+    ts.append(ts[0])
+    qs.append(random_genome(W + 200, seed + 1))            # no end found
+    ts.append(random_genome(80, seed + 2))
+    qb, tb = SeqBatch.from_strs(qs), SeqBatch.from_strs(ts)
+    return (qb.data, tb.data, qb.lengths.astype(np.int32),
+            tb.lengths.astype(np.int32))
+
+
+@pytest.mark.parametrize("W", [128, 256, 512])
+@pytest.mark.parametrize("mode", ["global", "qglocal", "tglocal"])
+def test_kernels_match_plain_on_card(cuda, W, mode):
+    q, t, n, m = _batch(W, mode, seed=W + len(mode))
+    Dmax, lo = ba.build_schedule(q.shape[1], t.shape[1], W)
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    args = [torch.from_numpy(x).to(cuda) for x in (qg, trg, n, m)]
+    kw = dict(W=W, Lt=t.shape[1], G=G, mode=mode)
+    _kernels.reset_counts()
+    k = ba.banded_align_batch(*args, lo, **kw)
+    p = ba.banded_align_batch_plain(*args, lo, **kw)
+    for key in ("dist", "end_i", "end_j", "bp"):
+        assert torch.equal(k[key], p[key]), key
+    tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
+                            max_steps=Dmax - 1)
+    tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"], p["end_j"],
+                                  max_steps=Dmax - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    assert [kk.launches for kk in _kernels.KERNELS] == [1, 1]
+
+
+def test_golden_pipeline_on_card(cuda, tmp_path):
+    from falcon_unzip_tpu.config import PipelineConfig
+    from falcon_unzip_tpu.io.fasta import write_fasta
+    from falcon_unzip_tpu.seq import decode
+    from falcon_unzip_tpu.utils.simulate import make_diploid, simulate_reads
+    from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
+    d = str(tmp_path)
+    dip = make_diploid(length=6000, het_rate=0.02, seed=77,
+                       het_span=(0.3, 0.7))
+    pr = simulate_reads(dip, coverage=14.0, read_len=1800,
+                        error_rate=0.0, seed=78)
+    write_fasta(f"{d}/preads.fa", ((pr.batch.names[i], pr.batch.to_str(i))
+                                   for i in range(len(pr.batch))))
+    write_fasta(f"{d}/draft.fa", [("d0", decode(dip.hap0))])
+    _kernels.reset_counts()
+    run_unzip(PipelineConfig(preads=f"{d}/preads.fa", draft=f"{d}/draft.fa",
+                             out_dir=f"{d}/out"), device="cuda")
+    golden = {"all_p_ctg.fa": "2864673ab4dc9bf2",
+              "all_h_ctg.fa": "70b2521a58bd85f1",
+              "all_phased_reads": "3c3f04ee8364d5f6"}
+    for rel, want in golden.items():
+        with open(f"{d}/out/3-unzip/{rel}", "rb") as fh:
+            assert hashlib.sha256(fh.read()).hexdigest()[:16] == want, rel
+    assert min(kk.launches for kk in _kernels.KERNELS) > 0
