@@ -1,9 +1,10 @@
-"""falcon-unzip-tpu on PyTorch + CUDA: the 3-unzip slice.
+"""falcon-unzip-tpu on PyTorch + CUDA: 3-unzip and 4-polish.
 
 A second package beside the JAX reference ``falcon_unzip_tpu``.  It keeps
 the reference's module layout and names; every device op is a torch op
-on an explicit ``torch.device``, and the banded edit-distance wavefront
-and its traceback are hand-written CUDA kernels (``csrc/``) on a GPU.
+on an explicit ``torch.device``, and on a GPU the banded edit-distance
+wavefront and its traceback, the banded pair-HMM forward and the Arrow
+splice row sweeps are hand-written CUDA kernels (``csrc/``).
 
 Nothing here imports JAX.  From the reference, only its JAX-free host
 modules are imported (``seq``, ``config``, ``io.fasta``, ``io.serialize``,

@@ -1,8 +1,9 @@
-"""Command-line layer of the port: the ``unzip`` subcommand (fc_unzip.py
-role).  The other subcommands of ``falcon_unzip_tpu.cli`` are not ported
-yet.
+"""Command-line layer of the port: the ``unzip`` (fc_unzip.py role) and
+``quiver`` (fc_quiver.py role) subcommands.  The other subcommands of
+``falcon_unzip_tpu.cli`` are not ported yet.
 
     python -m falcon_unzip_tpu_torch.cli unzip run.json [--device cuda]
+    python -m falcon_unzip_tpu_torch.cli quiver run.json [--device cuda]
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "PyTorch + CUDA compute)")
     ap.add_argument("-v", "--verbose", action="store_true")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("unzip", help="run the 3-unzip pipeline")
-    p.add_argument("config", help="config file (.json or fc_unzip.cfg INI)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a GPU)")
+    for cmd, what in (("unzip", "3-unzip"), ("quiver", "4-polish")):
+        p = sub.add_parser(cmd, help=f"run the {what} pipeline")
+        p.add_argument("config",
+                       help="config file (.json or fc_unzip.cfg INI)")
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; raises without a "
+                            "GPU)")
     return ap
 
 
@@ -29,8 +33,12 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    from falcon_unzip_tpu.config import load_config
+    cfg = load_config(args.config)
     if args.cmd == "unzip":
-        from falcon_unzip_tpu.config import load_config
         from ..pipeline.unzip import run_unzip
-        print(run_unzip(load_config(args.config), device=args.device))
+        print(run_unzip(cfg, device=args.device))
+    else:
+        from ..pipeline.quiver import run_quiver
+        print(run_quiver(cfg, device=args.device))
     return 0

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, cached by content hash in
+Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface at first use (all sources at once, one
+``nvcc`` process each), cached by content hash in
 ``falcon_unzip_tpu_torch/_build/`` (listed in ``.gitignore``), and bound
 with ctypes.  Each C entry point launches on the calling thread's current
 stream of the tensor's device and returns ``cudaGetLastError()``; a
@@ -22,14 +23,15 @@ import threading
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", "banded_align.cu")]
+SOURCES = [os.path.join(_PKG, "csrc", f"{stem}.cu")
+           for stem in ("banded_align", "pairhmm", "arrow_splice")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_lib = None
-BUILD_LOG = ""    # nvcc's output of the build this process ran (ptxas -v)
+_libs: dict = {}
+BUILD_LOG = ""    # nvcc's output of the builds this process ran (ptxas -v)
 
 
 class Kernel:
@@ -77,7 +79,9 @@ class Kernel:
 
 WAVEFRONT = Kernel("banded_wavefront")
 TRACEBACK = Kernel("traceback")
-KERNELS = (WAVEFRONT, TRACEBACK)
+PAIRHMM = Kernel("pairhmm_forward")
+ARROW = Kernel("arrow_splice")
+KERNELS = (WAVEFRONT, TRACEBACK, PAIRHMM, ARROW)
 
 
 def reset_counts() -> None:
@@ -94,42 +98,61 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile the kernels (if not cached) and return the library path."""
+def build() -> dict:
+    """Compile every source not yet cached, all at once, and return
+    {source stem: library path}."""
     global BUILD_LOG
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    libs, procs = {}, []
     for src in SOURCES:
+        stem = os.path.splitext(os.path.basename(src))[0]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         with open(src, "rb") as fh:
             h.update(fh.read())
-    lib = os.path.join(BUILD_DIR, f"libfalcon_unzip_kernels_"
-                                  f"{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                          capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, lib)
-    return lib
+        lib = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+        libs[stem] = lib
+        if os.path.exists(lib):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs.append((lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        BUILD_LOG += out
+        if proc.returncode != 0:
+            failed.append(f"{lib}: nvcc exit {proc.returncode}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                           + BUILD_LOG)
+    return libs
 
 
-def _load():
-    global _lib
+def _load() -> dict:
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+        if not _libs:
+            paths = build()
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib = ctypes.CDLL(paths["banded_align"])
             lib.fu_banded_wavefront.argtypes = [
                 vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                 vp, vp, vp, vp, vp]
             lib.fu_banded_wavefront.restype = ci
             lib.fu_traceback.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp]
             lib.fu_traceback.restype = ci
-            _lib = lib
-    return _lib
+            hmm = ctypes.CDLL(paths["pairhmm"])
+            hmm.fu_pairhmm_forward.argtypes = (
+                [vp, vp, vp, vp] + [ci] * 7 + [cf] * 10 + [vp, vp])
+            hmm.fu_pairhmm_forward.restype = ci
+            arrow = ctypes.CDLL(paths["arrow_splice"])
+            arrow.fu_arrow_sweeps.argtypes = (
+                [vp] * 8 + [ci] * 5 + [vp] * 7)
+            arrow.fu_arrow_sweeps.restype = ci
+            _libs.update(banded_align=lib, pairhmm=hmm, arrow_splice=arrow)
+    return _libs
 
 
 def _check(code: int, what: str) -> None:
@@ -181,7 +204,7 @@ def banded_wavefront(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
         out["bp"] = bp
     if P == 0:
         return out
-    lib = _load()
+    lib = _load()["banded_align"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         span = WAVEFRONT._start(stream)
@@ -210,7 +233,7 @@ def traceback(bp: torch.Tensor, end_i: torch.Tensor, end_j: torch.Tensor,
     out = torch.empty((P, max_steps), dtype=torch.int8, device=dev)
     if P == 0 or max_steps == 0:
         return out
-    lib = _load()
+    lib = _load()["banded_align"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         span = TRACEBACK._start(stream)
@@ -222,4 +245,105 @@ def traceback(bp: torch.Tensor, end_i: torch.Tensor, end_j: torch.Tensor,
         if span is not None:
             span[1].record(stream)
     TRACEBACK.count(0, span)
+    return out
+
+
+def pairhmm_forward(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
+                    m: torch.Tensor, params, *, W: int, Lt: int, G: int,
+                    Dmax: int) -> torch.Tensor:
+    """Launch the pair-HMM forward kernel on CUDA tensors.  params: the
+    ten log-params (ops.pairhmm.params_vector order).  Returns ll (P,)
+    float32."""
+    dev = qg.device
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm_forward needs CUDA tensors, got {dev}")
+    if W not in (32, 64, 128, 256, 512):
+        raise ValueError(f"band width W={W} not supported by the kernel")
+    P, LQG = qg.shape
+    LTG = trg.shape[1]
+    _need(qg, torch.int8, (P, LQG), "qg", dev)
+    _need(trg, torch.int8, (P, LTG), "trg", dev)
+    _need(n, torch.int32, (P,), "n", dev)
+    _need(m, torch.int32, (P,), "m", dev)
+    pv = [float(x) for x in params]
+    if len(pv) != 10:
+        raise ValueError(f"want 10 log-params, got {len(pv)}")
+    d_last = Dmax - 1
+    lo_last = max(0, (d_last + 1) // 2 - W // 2)
+    if lo_last + W > LQG or G + Lt - d_last + lo_last < 0 \
+            or G + Lt + W > LTG:
+        raise ValueError("guarded rows too short for the band schedule")
+    ll = torch.empty(P, dtype=torch.float32, device=dev)
+    if P == 0:
+        return ll
+    lib = _load()["pairhmm"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        span = PAIRHMM._start(stream)
+        code = lib.fu_pairhmm_forward(
+            qg.data_ptr(), trg.data_ptr(), n.data_ptr(), m.data_ptr(),
+            P, LQG, LTG, Lt, G, Dmax, W, *pv, ll.data_ptr(),
+            stream.cuda_stream)
+        _check(code, "pairhmm_forward launch")
+        if span is not None:
+            span[1].record(stream)
+    PAIRHMM.count(P * Dmax * W, span)
+    return ll
+
+
+def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
+                 m: torch.Tensor, cand: torch.Tensor, pvec: torch.Tensor,
+                 qt: torch.Tensor | None, tiers: torch.Tensor | None, *,
+                 C: int) -> tuple:
+    """Launch the Arrow splice sweep kernel on CUDA tensors.
+
+    q (P, Lq) / t (P, LJ) int8, n, m (P,) int32, cand (P, C) int32,
+    pvec (P, 10) float32; per-base tier mode: qt (P, Lq + 1) int8 tier ids
+    and tiers (T, 10) float32 (both None otherwise).  Returns
+    (afM, afI, afD (P, C, R), bM, bD (P, 3, C, R), ll_cur (P,)) float32,
+    R = Lq + 1."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"arrow_sweeps needs CUDA tensors, got {dev}")
+    P, Lq = q.shape
+    LJ = t.shape[1]
+    R = Lq + 1
+    _need(q, torch.int8, (P, Lq), "q", dev)
+    _need(t, torch.int8, (P, LJ), "t", dev)
+    _need(n, torch.int32, (P,), "n", dev)
+    _need(m, torch.int32, (P,), "m", dev)
+    _need(cand, torch.int32, (P, C), "cand", dev)
+    _need(pvec, torch.float32, (P, 10), "pvec", dev)
+    if (qt is None) != (tiers is None):
+        raise ValueError("qt and tiers come together")
+    T = 0
+    if qt is not None:
+        T = tiers.shape[0]
+        _need(qt, torch.int8, (P, R), "qt", dev)
+        _need(tiers, torch.float32, (T, 10), "tiers", dev)
+        if T < 1:
+            raise ValueError("empty tier table")
+    if LJ < 1 or C < 1:
+        raise ValueError(f"need LJ >= 1 and C >= 1, got {LJ}, {C}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    afM, afI, afD = (torch.empty((P, C, R), **f32) for _ in range(3))
+    bM, bD = (torch.empty((P, 3, C, R), **f32) for _ in range(2))
+    ll_cur = torch.empty(P, **f32)
+    out = (afM, afI, afD, bM, bD, ll_cur)
+    if P == 0:
+        return out
+    lib = _load()["arrow_splice"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        span = ARROW._start(stream)
+        code = lib.fu_arrow_sweeps(
+            q.data_ptr(), t.data_ptr(), n.data_ptr(), m.data_ptr(),
+            cand.data_ptr(), pvec.data_ptr(),
+            None if qt is None else qt.data_ptr(),
+            None if tiers is None else tiers.data_ptr(), T, P, Lq, LJ, C,
+            *(x.data_ptr() for x in out), stream.cuda_stream)
+        _check(code, "arrow_sweeps launch")
+        if span is not None:
+            span[1].record(stream)
+    ARROW.count(2 * P * R * LJ, span)
     return out

@@ -36,6 +36,23 @@ DEFS = {
         "_bucket", "ContigPhasing", "flat_delta0_tags", "phased_reads_table",
         "_g_ladder", "_prep_contig", "_group_chunks", "_het_filter_tags",
         "_sparse_block_votes"],
+    "ops/pairhmm.py": ["params_vector"],
+    "ops/arrow.py": ["_round_up", "ArrowSplicer._shapes",
+                     "ArrowSplicer._pick_chunk"],
+    "ops/consensus.py": [
+        "_masks", "compact_masks", "consensus_from_votes",
+        "consensus_with_map", "vote_matrix"],
+    "models/polisher.py": [
+        "_round128", "PolisherConfig", "_WinState", "PolishedContig",
+        "window_read_segments", "window_votes", "TIER_PHRED", "TIER_EDGES",
+        "LOWQ_TIER", "tier_table", "phred_to_tiers",
+        "Polisher._vote_consensus", "Polisher._candidates",
+        "Polisher._prep_windows", "Polisher._refine_windows",
+        "Polisher._refine_windows_reforward", "Polisher._score_pairs",
+        "Polisher._stitch_contig", "Polisher.polish_contig",
+        "Polisher.polish_all", "QV_CAP", "_QV_TABLE", "_QV_TABLE_N",
+        "_qv_table", "QV_TEMPLATE", "_qv_from_votes", "_stitch"],
+    "pipeline/quiver.py": ["_phase_route_mask", "_emit"],
 }
 
 

@@ -1,4 +1,8 @@
-"""CUDA kernels == their plain torch versions, on the card (bit-exact).
+"""CUDA kernels == their plain torch versions, on the card.
+
+The banded wavefront and traceback must be bit-exact; the float kernels
+(pair-HMM forward, Arrow splice sweeps) within
+``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal.
 
 Marked ``gpu``: these need an NVIDIA GPU and nvcc and skip elsewhere.
 Run them on a GPU machine with
@@ -61,7 +65,8 @@ def test_kernels_match_plain_on_card(cuda, W, mode):
                                   max_steps=Dmax - 1)
     torch.cuda.synchronize()
     assert torch.equal(tk, tp)
-    assert [kk.launches for kk in _kernels.KERNELS] == [1, 1]
+    assert (_kernels.WAVEFRONT.launches, _kernels.TRACEBACK.launches) \
+        == (1, 1)
 
 
 def test_golden_pipeline_on_card(cuda, tmp_path):
@@ -87,4 +92,67 @@ def test_golden_pipeline_on_card(cuda, tmp_path):
     for rel, want in golden.items():
         with open(f"{d}/out/3-unzip/{rel}", "rb") as fh:
             assert hashlib.sha256(fh.read()).hexdigest()[:16] == want, rel
-    assert min(kk.launches for kk in _kernels.KERNELS) > 0
+    assert _kernels.WAVEFRONT.launches > 0
+    assert _kernels.TRACEBACK.launches > 0
+
+
+def _close(k, p):
+    k, p = k.double().cpu(), p.double().cpu()
+    assert torch.equal(k < -1e29, p < -1e29)
+    ok = p > -1e29
+    err = (k - p).abs()[ok]
+    assert bool((err <= 1e-3 * p.abs()[ok].clamp(min=1.0)).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256, 512])
+def test_pairhmm_kernel_matches_plain_on_card(cuda, W):
+    from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    q, t, n, m = _batch(W, "global", seed=W + 7, P=40)
+    Dmax, lo = ba.build_schedule(q.shape[1], t.shape[1], W)
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    args = [torch.from_numpy(x).to(cuda) for x in (qg, trg, n, m)]
+    pvec = ph.params_vector()
+    _kernels.reset_counts()
+    k = ph.pairhmm_forward(*args, lo, pvec, W=W, Lt=t.shape[1], G=G)
+    p = ph.pairhmm_forward_plain(*args, lo, pvec, W=W, Lt=t.shape[1], G=G)
+    torch.cuda.synchronize()
+    _close(k, p)
+    assert _kernels.PAIRHMM.launches == 1
+
+
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+@pytest.mark.parametrize("LJ", [128, 640])
+def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
+    from falcon_unzip_tpu_torch.ops import arrow as ar
+    from falcon_unzip_tpu_torch.ops.pairhmm import params_vector
+    from falcon_unzip_tpu_torch.models.polisher import tier_table
+    rng = np.random.default_rng(LJ + len(mode))
+    P, C = 24, 4
+    Lq = LJ
+    q = np.full((P, Lq), 4, np.int8)
+    t = np.full((P, LJ), 4, np.int8)
+    n = np.zeros(P, np.int32)
+    m = np.zeros(P, np.int32)
+    cand = np.full((P, C), -1, np.int32)
+    for k in range(P - 1):                   # the last pair is padding
+        tk = random_genome(int(rng.integers(LJ // 3, LJ - 1)), k)
+        qk = mutate_read(tk, 0.15 * (k % 2), rng)[:Lq]
+        q[k, : len(qk)] = qk
+        t[k, : len(tk)] = tk
+        n[k], m[k] = len(qk), len(tk)
+        cols = [m[k] - 1, 0, m[k] // 2, 7][: 1 + k % C]
+        cand[k, : len(cols)] = cols
+    pvec = np.tile(params_vector(), (P, 1))
+    tiers = tier_table()
+    qt = rng.integers(0, len(tiers), size=(P, Lq + 1)).astype(np.int8)
+    dt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    args = [dt(x) for x in (q, t, n, m, cand, pvec)]
+    args += [dt(qt), dt(tiers)] if mode == "per-base" else [None, None]
+    _kernels.reset_counts()
+    k_cur, k_mut = ar.arrow_splice(*args, C=C)
+    p_cur, p_mut = ar.arrow_splice_plain(*args, C=C)
+    torch.cuda.synchronize()
+    _close(k_cur, p_cur)
+    _close(k_mut, p_mut)
+    assert _kernels.ARROW.launches == 1

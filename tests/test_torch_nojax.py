@@ -1,9 +1,9 @@
 """The port runs without JAX, and never silently leaves its device.
 
 A subprocess blocks ``import jax`` (as on a machine that has no JAX),
-imports every module of the port and runs 3-unzip on a small sim on the
-CPU.  The sources must hold no JAX import, and asking for CUDA without a
-GPU must raise.
+imports every module of the port and runs 3-unzip and 4-polish on a small
+sim on the CPU.  The sources must hold no JAX import, and asking for CUDA
+without a GPU must raise.
 """
 import ast
 import json
@@ -37,14 +37,20 @@ d = sys.argv[1]
 dip = make_diploid(length=4000, het_rate=0.02, seed=5, het_span=(0.3, 0.7))
 pr = simulate_reads(dip, coverage=12.0, read_len=1200, error_rate=0.0,
                     seed=6)
-write_fasta(d + "/preads.fa", ((pr.batch.names[i], pr.batch.to_str(i))
-                               for i in range(len(pr.batch))))
+raw = simulate_reads(dip, coverage=10.0, read_len=1200, error_rate=0.03,
+                     seed=7)
+for fn, b in (("/preads.fa", pr.batch), ("/raw.fa", raw.batch)):
+    write_fasta(d + fn, ((b.names[i], b.to_str(i)) for i in range(len(b))))
 write_fasta(d + "/draft.fa", [("d0", decode(dip.hap0))])
-cfg = PipelineConfig(preads=d + "/preads.fa", draft=d + "/draft.fa",
-                     out_dir=d + "/out")
+cfg = PipelineConfig(preads=d + "/preads.fa", reads=d + "/raw.fa",
+                     draft=d + "/draft.fa", out_dir=d + "/out")
 res = run_unzip(cfg, device="cpu")
 assert res["p_ctg"]["total_bp"] >= 3600, res
 assert os.path.getsize(d + "/out/3-unzip/all_phased_reads") > 0
+from falcon_unzip_tpu_torch.pipeline.quiver import run_quiver
+res = run_quiver(cfg, device="cpu")
+assert res["p"]["total_bp"] >= 3600, res
+assert os.path.getsize(d + "/out/4-polish/cns_h_ctg.fastq") > 0
 assert not any(k == "jax" or k.startswith("jax.")
                for k, v in sys.modules.items() if v is not None)
 print("NOJAX-OK")
@@ -58,6 +64,16 @@ def test_port_runs_without_jax(tmp_path):
                           cwd=str(tmp_path), timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX-OK" in proc.stdout
+
+
+# reference modules that import JAX (directly or through an import)
+JAX_MODULES = {f"falcon_unzip_tpu.{m}" for m in (
+    "ops.banded_align", "ops.pallas_align", "ops.arrow", "ops.pairhmm",
+    "ops.pallas_pairhmm", "ops.consensus", "ops.pileup", "ops.association",
+    "models.aligner", "models.overlapper", "models.phaser",
+    "models.polisher", "models.unzipper", "models.dedup",
+    "pipeline.unzip", "pipeline.quiver", "parallel.sharding",
+    "parallel.mesh", "parallel.collectives", "coords", "io.overlaps")}
 
 
 def _sources():
@@ -81,9 +97,7 @@ def test_no_jax_import_in_port_sources():
                 continue
             for mod in mods:
                 top = mod.split(".")[0]
-                if top == "jax" or mod in (
-                        "falcon_unzip_tpu.ops.banded_align",
-                        "falcon_unzip_tpu.ops.pallas_align"):
+                if top == "jax" or mod in JAX_MODULES:
                     bad.append(f"{path}:{node.lineno} {mod}")
     assert not bad, bad
 
@@ -103,8 +117,9 @@ def test_cli_cuda_without_gpu_raises(monkeypatch, tmp_path):
     cfg.write_text(json.dumps({"preads": str(tmp_path / "p.fa"),
                                "draft": str(tmp_path / "d.fa"),
                                "out_dir": str(tmp_path / "out")}))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli_main(["unzip", str(cfg)])          # --device defaults to cuda
+    for cmd in ("unzip", "quiver"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli_main([cmd, str(cfg)])          # --device defaults to cuda
     assert not (tmp_path / "out").exists()
 
 

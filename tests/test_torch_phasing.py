@@ -21,6 +21,10 @@ from falcon_unzip_tpu_torch.models import phaser as port_phaser
 from falcon_unzip_tpu_torch.ops import association as port_assoc
 from falcon_unzip_tpu_torch.ops import pileup as port_pileup
 
+# one intra-op thread: the suite runs several pytest workers on one host,
+# and a torch CPU thread pool in each would oversubscribe the cores
+torch.set_num_threads(1)
+
 HET_KW = dict(min_depth=10, min_allele_count=2, allele_freq_min=0.25,
               biallelic_frac=0.8)
 FIELDS = ("het_pos", "b1", "b2", "block_id", "orient", "read_ids",

@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from falcon_unzip_tpu.config import PipelineConfig
 from falcon_unzip_tpu.io.fasta import write_fasta
@@ -26,6 +27,10 @@ from falcon_unzip_tpu.utils.simulate import (make_diploid, random_genome,
 from falcon_unzip_tpu_torch.models import aligner as port_aligner
 from falcon_unzip_tpu_torch.models.overlapper import PreadOverlapper
 from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
+
+# one intra-op thread: the suite runs several pytest workers on one host,
+# and a torch CPU thread pool in each would oversubscribe the cores
+torch.set_num_threads(1)
 
 GOLDEN = {
     "all_p_ctg.fa": "2864673ab4dc9bf2",
