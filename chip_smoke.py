@@ -16,7 +16,13 @@ non-zero:
    windows (Dmax 1025), W 64/128/256.  Arrow splice sweeps: P=512,
    Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6).  Seeded pairs
    at 0% and 15% error; the float kernels within
-   |kernel - plain| <= 1e-3 * max(1, |plain|);
+   |kernel - plain| <= 1e-3 * max(1, |plain|).  Pair-HMM step ablation:
+   the five feature sets at the constants of scripts/ablate_pallas.py
+   (P=256, W=128, Dmax=1025, LQG=1024), from the script's NEG start equal
+   (tolerance 0), and at a seeded probe where each part changes the
+   output, equal without the logaddexps and within 1e-5 relative with
+   them; each set's time from the NEG and from a seeded start beside the
+   card's name and power limit;
 4. golden fixture: 3-unzip and 4-polish on cuda through the port's
    command line must reproduce the five golden hashes of
    tests/test_golden.py, and cns_*.fastq must carry the sequences of a
@@ -32,12 +38,20 @@ non-zero:
    preads and 29x raw reads at 3% error (the recipe of
    scripts/e2e_bench.py); per-stage seconds, kernel launches, device ms,
    cell rate, peak device memory and the cns statistics;
-6. the kernels line and the result line.
+6. the ablation path: python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
+   (each set's time beside the card's name and power limit);
+7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
+   line printed as it is;
+8. the kernels line (each kernel's launches on its path, its time at the
+   main path's shape beside its plain version's and its bound) and the
+   result line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -51,18 +65,12 @@ def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def phase_card(torch) -> str:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false")
-    smi = _smi()
+    from falcon_unzip_tpu_torch.bench import card_label
     from falcon_unzip_tpu_torch.ops import _kernels
+    smi = card_label()
     nvcc = subprocess.run([_kernels._nvcc(), "--version"],
                           capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
@@ -127,6 +135,7 @@ def _time_ms(torch, fn, reps):
 
 
 def phase_parity_align(torch, np) -> dict:
+    from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     dev = torch.device("cuda")
@@ -176,6 +185,7 @@ def phase_parity_align(torch, np) -> dict:
                 tb_err = int((tk.int() - tp.int()).abs().max())
                 if not torch.equal(tk, tp):
                     _fail(f"traceback differs at W={W} {mode} bq={bq}")
+                n_moves = int((tk != ba.MOVE_NONE).sum())
                 wf_ms = _time_ms(torch, lambda: ba.banded_align_batch(
                     *args, **kw), 3)
                 tb_ms = _time_ms(torch, lambda: ba.traceback_batch(
@@ -183,7 +193,12 @@ def phase_parity_align(torch, np) -> dict:
                 finite = int((k["dist"] < 1 << 20).sum())
                 shapes[(W, mode, bq)] = dict(
                     wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
-                    tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err)
+                    tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err,
+                    wf_work=bench.wavefront_work(
+                        n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
+                        LTG=trg.shape[1]),
+                    tb_work=bench.traceback_work(n_moves, P=P,
+                                                 max_steps=steps))
                 print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}"
                       f" finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
                       f" (plain {plain_ms:.1f} ms) | traceback {tb_ms:.3f} ms"
@@ -221,6 +236,7 @@ def _windows(np, rng, P, win, tlen):
 def phase_parity_hmm(torch, np) -> dict:
     """Pair-HMM forward kernel against pairhmm_forward_plain on the card
     at the bench shape (P=256, 512 bp windows, Dmax 1025)."""
+    from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
     dev = torch.device("cuda")
@@ -249,7 +265,10 @@ def phase_parity_hmm(torch, np) -> dict:
         if not within or not bool(torch.isfinite(k).all()):
             _fail(f"pairhmm W={W}: max abs err {err} rel {rel} over the bar")
         ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 5)
-        res[W] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel)
+        res[W] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel,
+                      work=bench.pairhmm_work(n, m, Dmax=Dmax, W=W,
+                                              LQG=qg.shape[1],
+                                              LTG=trg.shape[1]))
         print(f"[3 parity] pairhmm_forward W={W} P={P} win={WIN} Dmax={Dmax}"
               f" in-band {int(ok.sum())}/{P} | max abs err {err:.3g} rel "
               f"{rel:.3g} (bar 1e-3) | kernel {ms:.3f} ms (plain "
@@ -260,6 +279,7 @@ def phase_parity_hmm(torch, np) -> dict:
 def phase_parity_arrow(torch, np) -> dict:
     """Arrow splice sweep kernel against arrow_splice_plain on the card at
     the production polish shape (P=512, Lq=LJ=640, C=4)."""
+    from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.polisher import (PolisherConfig,
                                                          tier_table)
     from falcon_unzip_tpu_torch.ops import arrow as ar
@@ -301,12 +321,71 @@ def phase_parity_arrow(torch, np) -> dict:
             _fail(f"arrow {mode}: max abs err {err} rel {rel} over the bar")
         ms = _time_ms(torch, lambda: ar.arrow_sweeps(*args, C=C), 5)
         all_ms = _time_ms(torch, lambda: ar.arrow_splice(*args, C=C), 5)
-        res[mode] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel)
+        res[mode] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel,
+                         work=bench.arrow_work(n, m, Lq=L, LJ=L, C=C))
         print(f"[3 parity] arrow_splice {mode} P={P} Lq=LJ={L} C={C} | "
               f"{int(ok.sum())} scores, max abs err {err:.3g} rel {rel:.3g}"
               f" (bar 1e-3) | sweep kernel {ms:.3f} ms (plain sweeps "
               f"{plain_ms:.1f} ms) | with splice assembly {all_ms:.3f} ms "
               f"(plain {plain_all_ms:.1f} ms)", flush=True)
+    return res
+
+
+def phase_parity_ablate(torch, smi) -> dict:
+    """Pair-HMM step ablation kernel against pairhmm_ablate_plain on the
+    card at the constants of the ablation script, every feature set, at
+    two inputs: the script's (state planes NEG: out is NEG everywhere),
+    equal; and the probe (seeded state planes, rows of N with two bases),
+    where every set gives its own out: the sets without the logaddexps
+    equal, those with them within 1e-5 relative.  Each set is timed from
+    the NEG start and from a seeded one."""
+    from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
+    from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
+    dt = lambda x: torch.from_numpy(x).to("cuda")
+    qg = dt(ab.rows())
+    neg = dt(pa.neg_init(ab.P, ab.W))
+    seeded = dt(pa.seeded_init(ab.P, ab.W, 0))
+    probe_q, probe_i = (dt(x) for x in pa.probe_inputs(ab.P, ab.LQG, ab.W, 1))
+    res, probe_outs = {}, []
+    for feats in pa.FEATURE_SETS:
+        k = pa.pairhmm_ablate(qg, neg, feats, Dmax=ab.Dmax)
+        t0 = time.perf_counter()
+        p = pa.pairhmm_ablate_plain(qg, neg, feats, Dmax=ab.Dmax)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        if not torch.equal(k, p):
+            _fail(f"pairhmm_ablate {feats} from NEG: kernel and plain differ")
+        k = pa.pairhmm_ablate(probe_q, probe_i, feats, Dmax=ab.Dmax)
+        p = pa.pairhmm_ablate_plain(probe_q, probe_i, feats, Dmax=ab.Dmax)
+        if not bool((p > -1e29).all()) or not bool(torch.isfinite(k).all()):
+            _fail(f"pairhmm_ablate {feats}: probe output not finite")
+        err = float((k.double() - p.double()).abs().max())
+        rel = float(((k.double() - p.double()).abs()
+                     / p.double().abs().clamp_min(1e-30)).max())
+        if ("lse" in feats and rel > 1e-5) or \
+                ("lse" not in feats and not torch.equal(k, p)):
+            _fail(f"pairhmm_ablate {feats} at the probe: max abs err {err} "
+                  f"rel {rel}")
+        probe_outs.append(k)
+        ms = _time_ms(torch, lambda: pa.pairhmm_ablate(
+            qg, neg, feats, Dmax=ab.Dmax), 20)
+        ms_seeded = _time_ms(torch, lambda: pa.pairhmm_ablate(
+            qg, seeded, feats, Dmax=ab.Dmax), 20)
+        res[feats] = dict(ms=ms, ms_seeded=ms_seeded, plain_ms=plain_ms,
+                          err=err)
+        print(f"[3 parity] pairhmm_ablate {feats} P={ab.P} W={ab.W} "
+              f"Dmax={ab.Dmax} LQG={ab.LQG} | from NEG equal | at the probe "
+              f"max abs err {err:.3g} rel {rel:.3g} (bar "
+              f"{'1e-5 rel' if 'lse' in feats else '0'}) | kernel {ms:.4f} "
+              f"ms, {1e3 * ms / ab.Dmax:.4f} us/step from NEG, "
+              f"{ms_seeded:.4f} ms, {1e3 * ms_seeded / ab.Dmax:.4f} us/step "
+              f"from the seeded start (plain {plain_ms:.1f} ms) | {smi}",
+              flush=True)
+    for a in range(len(probe_outs)):
+        for b in range(a):
+            if torch.equal(probe_outs[a], probe_outs[b]):
+                _fail("pairhmm_ablate: two feature sets give the same out "
+                      "at the probe")
     return res
 
 
@@ -493,7 +572,7 @@ def phase_reforward(torch, np, d) -> dict:
                                                          _WinState)
     from falcon_unzip_tpu_torch.ops import _kernels
     from falcon_unzip_tpu_torch.ops.pairhmm import PairHMMScorer
-    from falcon_unzip_tpu_torch.utils.oracle import polish_window_oracle
+    from falcon_unzip_tpu_torch.oracle.hmm import polish_window_oracle
     from falcon_unzip_tpu_torch.utils.simulate import (mutate_read,
                                                        random_genome)
     contigs = []
@@ -665,6 +744,58 @@ def phase_main(torch, tmp, genome_bp) -> dict:
                          q_launch["arrow_splice"]}}
 
 
+def phase_ablate_path() -> dict:
+    """The ablation script's entry point with the counts set to 0 just
+    before it and read just after."""
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.scripts import ablate_pairhmm
+    _kernels.reset_counts()
+    rows = ablate_pairhmm.main()
+    launches = _kernels.ABLATE.launches
+    if launches <= 0 or len(rows) != 5:
+        _fail(f"the ablation script launched its kernel {launches} times "
+              f"over {len(rows)} feature sets")
+    print(f"[6 ablate] {len(rows)} feature sets, {launches} kernel launches",
+          flush=True)
+    return {"launches": launches}
+
+
+def phase_bench() -> dict:
+    """The kernel bench through the port's command line, counts set to 0
+    just before it and read just after; its JSON line printed as it is."""
+    from falcon_unzip_tpu_torch.cli import main as cli_main
+    from falcon_unzip_tpu_torch.ops import _kernels
+    kernels = (_kernels.PAIRHMM, _kernels.ARROW, _kernels.WAVEFRONT)
+    _kernels.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli_main(["bench"])
+    launches = _launches(kernels)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    res = json.loads(line)
+    if code != 0 or min(launches.values()) <= 0:
+        _fail(f"bench exited {code} with launches {launches}")
+    rates = ("value", "gcells_per_sec", "pct_fp32_peak",
+             "splice_mutations_per_sec", "splice_pairs_per_sec",
+             "editdp_gcells_per_sec")
+    if not all(isinstance(res[k], float) and res[k] > 0 for k in rates):
+        _fail(f"bench rates not positive: {res}")
+    print(f"[7 bench] launches {launches}", flush=True)
+    return res
+
+
+def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
+    """One kernel of the kernels line; its bound from this run's work."""
+    from falcon_unzip_tpu_torch import bench
+    bound, by = bench.bound_ms(work["ops"], work["bytes"], work["peak"])
+    return {"name": name, "route": "cuda",
+            "source": "falcon_unzip_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=1_000_000)
@@ -682,6 +813,7 @@ def main(argv=None) -> int:
     shapes = phase_parity_align(torch, np)
     hmm = phase_parity_hmm(torch, np)
     arrow = phase_parity_arrow(torch, np)
+    ablate = phase_parity_ablate(torch, smi)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         golden_dir = phase_golden(tmp)
@@ -689,34 +821,39 @@ def main(argv=None) -> int:
         main_run = phase_main(torch, tmp, args.genome_bp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    ablate_run = phase_ablate_path()
+    phase_bench()
+    from falcon_unzip_tpu_torch import bench
+    from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
     at = shapes[(256, "tglocal", 2048)]
-    csrc = "falcon_unzip_tpu_torch/csrc/"
+    full = ("shift", "load", "lse")
     kernels = [
-        {"name": "banded_wavefront", "route": "cuda",
-         "source": csrc + "banded_align.cu",
-         "replaces": "falcon_unzip_tpu/ops/pallas_align.py:41",
-         "launches": main_run["launches"]["banded_wavefront"],
-         "max_abs_err": max(v["wf_err"] for v in shapes.values()),
-         "ms": at["wf_ms"], "plain_ms": at["wf_plain_ms"]},
-        {"name": "traceback", "route": "cuda",
-         "source": csrc + "banded_align.cu",
-         "replaces": "falcon_unzip_tpu/ops/banded_align.py:180",
-         "launches": main_run["launches"]["traceback"],
-         "max_abs_err": max(v["tb_err"] for v in shapes.values()),
-         "ms": at["tb_ms"], "plain_ms": at["tb_plain_ms"]},
-        {"name": "pairhmm_forward", "route": "cuda",
-         "source": csrc + "pairhmm.cu",
-         "replaces": "falcon_unzip_tpu/ops/pallas_pairhmm.py:41",
-         "launches": reforward["launches"],
-         "max_abs_err": max(v["err"] for v in hmm.values()),
-         "ms": hmm[128]["ms"], "plain_ms": hmm[128]["plain_ms"]},
-        {"name": "arrow_splice", "route": "cuda",
-         "source": csrc + "arrow_splice.cu",
-         "replaces": "falcon_unzip_tpu/ops/arrow.py:88",
-         "launches": main_run["launches"]["arrow_splice"],
-         "max_abs_err": max(v["err"] for v in arrow.values()),
-         "ms": arrow["per-pair"]["ms"],
-         "plain_ms": arrow["per-pair"]["plain_ms"]},
+        _entry("banded_wavefront", "banded_align.cu",
+               "falcon_unzip_tpu/ops/pallas_align.py:41",
+               main_run["launches"]["banded_wavefront"],
+               max(v["wf_err"] for v in shapes.values()), at["wf_ms"],
+               at["wf_plain_ms"], at["wf_work"]),
+        _entry("traceback", "banded_align.cu",
+               "falcon_unzip_tpu/ops/banded_align.py:180",
+               main_run["launches"]["traceback"],
+               max(v["tb_err"] for v in shapes.values()), at["tb_ms"],
+               at["tb_plain_ms"], at["tb_work"]),
+        _entry("pairhmm_forward", "pairhmm.cu",
+               "falcon_unzip_tpu/ops/pallas_pairhmm.py:41",
+               reforward["launches"], max(v["err"] for v in hmm.values()),
+               hmm[128]["ms"], hmm[128]["plain_ms"], hmm[128]["work"]),
+        _entry("arrow_splice", "arrow_splice.cu",
+               "falcon_unzip_tpu/ops/arrow.py:88",
+               main_run["launches"]["arrow_splice"],
+               max(v["err"] for v in arrow.values()),
+               arrow["per-pair"]["ms"], arrow["per-pair"]["plain_ms"],
+               arrow["per-pair"]["work"]),
+        _entry("pairhmm_ablate", "pairhmm_ablate.cu",
+               "scripts/ablate_pallas.py:17", ablate_run["launches"],
+               max(v["err"] for v in ablate.values()), ablate[full]["ms"],
+               ablate[full]["plain_ms"],
+               bench.ablate_work(full, P=ab.P, Dmax=ab.Dmax, W=ab.W,
+                                 LQG=ab.LQG)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

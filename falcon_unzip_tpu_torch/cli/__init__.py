@@ -1,9 +1,11 @@
-"""Command-line layer of the port: the ``unzip`` (fc_unzip.py role) and
-``quiver`` (fc_quiver.py role) subcommands.  The other subcommands of
-``falcon_unzip_tpu.cli`` are not ported yet.
+"""Command-line layer of the port: the ``unzip`` (fc_unzip.py role),
+``quiver`` (fc_quiver.py role) and ``bench`` (the kernel bench, one JSON
+line, GPU only) subcommands.  The other subcommands of the reference's
+command line are not ported yet.
 
     python -m falcon_unzip_tpu_torch.cli unzip run.json [--device cuda]
     python -m falcon_unzip_tpu_torch.cli quiver run.json [--device cuda]
+    python -m falcon_unzip_tpu_torch.cli bench
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; raises without a "
                             "GPU)")
+    sub.add_parser("bench", help="kernel bench on the GPU (one JSON line)")
     return ap
 
 
@@ -33,7 +36,10 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    from falcon_unzip_tpu.config import load_config
+    if args.cmd == "bench":
+        from ..bench import main as bench_main
+        return bench_main()
+    from ..config import load_config
     cfg = load_config(args.config)
     if args.cmd == "unzip":
         from ..pipeline.unzip import run_unzip

@@ -26,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from falcon_unzip_tpu.oracle.align import GAP
+from .oracle.align import GAP
 from .ops.banded_align import (MOVE_DIAG, MOVE_LEFT, MOVE_UP,
                                moves_to_tags_vec)
 
@@ -284,7 +284,7 @@ def bam_to_alnset(bam, min_mapq: int = 0):
     not distinguishable without MD/NM aux tags, which BAM-lite skips.
     """
     from .models.aligner import AlnSet
-    from falcon_unzip_tpu.io.native import BamColumns
+    from .io.native import BamColumns
     if isinstance(bam, BamColumns):
         bam = bam.to_bamfile()
     read_id, ctg, strand, t_s, t_e, q_len, dist, tags, q_s = \

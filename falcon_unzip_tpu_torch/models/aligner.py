@@ -14,11 +14,10 @@ import os
 
 import numpy as np
 
-from falcon_unzip_tpu.ops.kmer_index import KmerIndex, seed_batch, seed_read
-from falcon_unzip_tpu.seq import PAD, SeqBatch, revcomp
-
 from ..device import resolve
 from ..ops.banded_align import BandedAligner, anchor_trim, moves_to_tags_vec
+from ..ops.kmer_index import KmerIndex, seed_batch, seed_read
+from ..seq import PAD, SeqBatch, revcomp
 
 
 @dataclasses.dataclass
@@ -85,7 +84,7 @@ class AlnSet:
 
     def to_bytes(self) -> bytes:
         """Pack into one msgpack blob (the cross-host gather payload)."""
-        from falcon_unzip_tpu.parallel.distributed import pack_arrays
+        from ..parallel.distributed import pack_arrays
         tag_lens = np.array([len(t) for t in self.tags], np.int64)
         tag_cat = (np.concatenate(self.tags) if self.tags
                    else np.zeros((0, 3), np.int32)).astype(np.int32)
@@ -98,7 +97,7 @@ class AlnSet:
 
     @staticmethod
     def from_bytes(blob: bytes) -> "AlnSet":
-        from falcon_unzip_tpu.parallel.distributed import unpack_arrays
+        from ..parallel.distributed import unpack_arrays
         c = unpack_arrays(blob)
         offs = np.concatenate([[0], np.cumsum(c["tag_lens"])]).astype(np.int64)
         tags = [c["tag_cat"][offs[i]:offs[i + 1]]
@@ -444,7 +443,7 @@ def align_long_queries(aligner: "ReadToContigAligner", batch: SeqBatch,
         for s in starts:
             offs.append(int(s))
             seqs.append(r[s : s + chunk])
-    from falcon_unzip_tpu.seq import round_up
+    from ..seq import round_up
     lmax = round_up(max((len(s) for s in seqs), default=1), 128)
     data = np.full((len(seqs), lmax), PAD, np.int8)
     lengths = np.zeros(len(seqs), np.int32)

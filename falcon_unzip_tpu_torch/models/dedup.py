@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from falcon_unzip_tpu.seq import SeqBatch
+from ..seq import SeqBatch
 from .aligner import AlignerConfig, ReadToContigAligner
 
 

@@ -21,12 +21,10 @@ import os
 
 import numpy as np
 
-from falcon_unzip_tpu.ops.kmer_index import (KmerIndex, chain_best_per_pair,
-                                             query_flat)
-from falcon_unzip_tpu.seq import PAD, SeqBatch, revcomp
-
 from ..device import resolve
 from ..ops.banded_align import BandedAligner
+from ..ops.kmer_index import KmerIndex, chain_best_per_pair, query_flat
+from ..seq import PAD, SeqBatch, revcomp
 
 
 @dataclasses.dataclass
@@ -63,12 +61,12 @@ class OverlapSet:
                              for k in self._COLS})
 
     def to_bytes(self) -> bytes:
-        from falcon_unzip_tpu.parallel.distributed import pack_arrays
+        from ..parallel.distributed import pack_arrays
         return pack_arrays({k: getattr(self, k) for k in self._COLS})
 
     @staticmethod
     def from_bytes(blob: bytes) -> "OverlapSet":
-        from falcon_unzip_tpu.parallel.distributed import unpack_arrays
+        from ..parallel.distributed import unpack_arrays
         return OverlapSet(**unpack_arrays(blob))
 
     @staticmethod
@@ -176,7 +174,7 @@ class PreadOverlapper:
         # (strand, block) passes are independent; the thread pool
         # overlaps the np.unique sorts across host cores and task-order
         # appends keep the stream byte-identical to the serial loop
-        from falcon_unzip_tpu.ops.kmer_index import thread_map
+        from ..ops.kmer_index import thread_map
         tasks = [(strand, a0) for strand in (0, 1)
                  for a0 in range(a_lo, a_hi, block)]
         for a_l, bs, st, t_los in thread_map(_one, tasks):

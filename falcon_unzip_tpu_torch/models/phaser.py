@@ -17,13 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from falcon_unzip_tpu.oracle.phasing import PhasingConfig, phase_blocks
-
 from ..device import resolve
 from ..ops.association import (assign_reads, association_band_batch,
                                read_block_votes_batch)
 from ..ops.pileup import (allele_matrix_scatter_batch, het_call_host,
                           pileup_het_batch, pileup_host)
+from ..oracle.phasing import PhasingConfig, phase_blocks
 from .aligner import AlnSet
 
 

@@ -15,12 +15,11 @@ import dataclasses
 
 import numpy as np
 
-from falcon_unzip_tpu.oracle.hmm import NEG as NEG_LL
-from falcon_unzip_tpu.oracle.hmm import HMMParams, mutations_of
-from falcon_unzip_tpu.seq import PAD
-
 from ..ops.arrow import ArrowSplicer
 from ..ops.consensus import consensus_with_map, vote_matrix
+from ..oracle.hmm import NEG as NEG_LL
+from ..oracle.hmm import HMMParams, mutations_of
+from ..seq import PAD
 from .aligner import AlnSet
 
 
@@ -183,7 +182,7 @@ def tier_table(base_params=None) -> np.ndarray:
     """(1 + len(TIER_PHRED), 10) per-tier HMM log-params: row 0 global,
     rows 1.. the base-quality tiers (params_for_read_qv at each
     representative phred) — the ops.arrow per-base tier_params table."""
-    from falcon_unzip_tpu.oracle.hmm import params_for_read_qv
+    from ..oracle.hmm import params_for_read_qv
     from ..ops.pairhmm import params_vector
     rows = [params_vector(base_params)]
     rows += [params_vector(params_for_read_qv(q, base_params))

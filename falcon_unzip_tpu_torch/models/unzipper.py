@@ -20,8 +20,8 @@ import dataclasses
 
 import numpy as np
 
-from falcon_unzip_tpu.seq import SeqBatch, revcomp
-from falcon_unzip_tpu.graph.string_graph import (StringGraph, mirror, node, node_orient,
+from ..seq import SeqBatch, revcomp
+from ..graph.string_graph import (StringGraph, mirror, node, node_orient,
                                   node_read)
 from .overlapper import OverlapSet
 
@@ -233,7 +233,7 @@ def place_haplotigs(p_ctg, h_ctg: list["Haplotig"], *, band: int = 512,
 
     p_ctg: [(name, seq, reads)]; h_ctg: Haplotig list (mutated in place).
     """
-    from falcon_unzip_tpu.seq import SeqBatch
+    from ..seq import SeqBatch
     from ..coords import M4Record
     from .aligner import (AlignerConfig, LongAln, ReadToContigAligner,
                           align_long_queries)
@@ -1011,7 +1011,7 @@ class Unzipper:
         q = tail[-400:]
         cap = min(len(R), (hi - t_s) + 600)
         if len(q) >= 64 and cap >= 64:
-            from falcon_unzip_tpu.oracle.align import banded_dp, traceback_banded
+            from ..oracle.align import banded_dp, traceback_banded
             dist, end, bp, lo_arr = banded_dp(q, R[:cap], W=128,
                                               mode="tglocal")
             if dist <= 0.25 * len(q):

@@ -24,7 +24,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", f"{stem}.cu")
-           for stem in ("banded_align", "pairhmm", "arrow_splice")]
+           for stem in ("banded_align", "pairhmm", "arrow_splice",
+                        "pairhmm_ablate")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -81,7 +82,8 @@ WAVEFRONT = Kernel("banded_wavefront")
 TRACEBACK = Kernel("traceback")
 PAIRHMM = Kernel("pairhmm_forward")
 ARROW = Kernel("arrow_splice")
-KERNELS = (WAVEFRONT, TRACEBACK, PAIRHMM, ARROW)
+ABLATE = Kernel("pairhmm_ablate")
+KERNELS = (WAVEFRONT, TRACEBACK, PAIRHMM, ARROW, ABLATE)
 
 
 def reset_counts() -> None:
@@ -151,7 +153,11 @@ def _load() -> dict:
             arrow.fu_arrow_sweeps.argtypes = (
                 [vp] * 8 + [ci] * 5 + [vp] * 7)
             arrow.fu_arrow_sweeps.restype = ci
-            _libs.update(banded_align=lib, pairhmm=hmm, arrow_splice=arrow)
+            abl = ctypes.CDLL(paths["pairhmm_ablate"])
+            abl.fu_pairhmm_ablate.argtypes = [vp, vp] + [ci] * 5 + [vp, vp]
+            abl.fu_pairhmm_ablate.restype = ci
+            _libs.update(banded_align=lib, pairhmm=hmm, arrow_splice=arrow,
+                         pairhmm_ablate=abl)
     return _libs
 
 
@@ -346,4 +352,47 @@ def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
         if span is not None:
             span[1].record(stream)
     ARROW.count(2 * P * R * LJ, span)
+    return out
+
+
+ABLATE_FEATS = {"shift": 1, "load": 2, "lse": 4}
+ABLATE_SETS = ((), ("shift",), ("load",), ("lse",), ("shift", "load", "lse"))
+
+
+def pairhmm_ablate(qg: torch.Tensor, init: torch.Tensor, feats, *,
+                   Dmax: int) -> torch.Tensor:
+    """Launch the pair-HMM step ablation kernel on CUDA tensors.  qg
+    (P, LQG) int32 base codes; init (P, W) float32, the six state planes'
+    start; feats one of ``ABLATE_SETS``.  Returns out (P, W) float32."""
+    feats = tuple(sorted(feats))
+    if feats not in {tuple(sorted(f)) for f in ABLATE_SETS}:
+        raise ValueError(f"feature set {feats} is not built")
+    dev = qg.device
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm_ablate needs CUDA tensors, got {dev}")
+    P, LQG = qg.shape
+    W = init.shape[-1]
+    if W != 128:
+        raise ValueError(f"band width W={W} not supported by the kernel")
+    _need(qg, torch.int32, (P, LQG), "qg", dev)
+    _need(init, torch.float32, (P, W), "init", dev)
+    # the TPU kernel's window: 128-aligned, W + 128 columns wide
+    lo_last = max(0, Dmax // 2 - W // 2)
+    if Dmax < 1 or (lo_last // 128) * 128 + W + 128 > LQG:
+        raise ValueError("rows too short for the last window")
+    out = torch.empty((P, W), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    lib = _load()["pairhmm_ablate"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        span = ABLATE._start(stream)
+        code = lib.fu_pairhmm_ablate(
+            qg.data_ptr(), init.data_ptr(), P, LQG, Dmax, W,
+            sum(ABLATE_FEATS[f] for f in feats), out.data_ptr(),
+            stream.cuda_stream)
+        _check(code, "pairhmm_ablate launch")
+        if span is not None:
+            span[1].record(stream)
+    ABLATE.count(P * Dmax * W, span)
     return out

@@ -28,10 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_unzip_tpu.oracle.hmm import NEG, HMMParams
-from falcon_unzip_tpu.seq import PAD
-
 from ..device import resolve
+from ..oracle.hmm import NEG, HMMParams
+from ..seq import PAD
 from . import _kernels
 from .pairhmm import params_vector
 

@@ -22,10 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_unzip_tpu.oracle.align import GAP, INF, band_lo
-from falcon_unzip_tpu.seq import PAD
-
 from ..device import resolve
+from ..oracle.align import GAP, INF, band_lo
+from ..seq import PAD
 from . import _kernels
 
 MOVE_DIAG, MOVE_UP, MOVE_LEFT, MOVE_NONE = 0, 1, 2, 3

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from falcon_unzip_tpu.oracle.align import GAP
-from falcon_unzip_tpu.oracle.consensus import MAX_DELTA
+from ..oracle.align import GAP
+from ..oracle.consensus import MAX_DELTA
 
 
 def _masks(xp, votes, template, min_cov: int, del_min_cov: int = 0):

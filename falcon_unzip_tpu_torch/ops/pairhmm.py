@@ -19,9 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_unzip_tpu.oracle.hmm import NEG, HMMParams
-
 from ..device import resolve
+from ..oracle.hmm import NEG, HMMParams
 from . import _kernels
 from .banded_align import _as_list, build_schedule, prepare_batch
 

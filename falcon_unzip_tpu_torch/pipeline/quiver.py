@@ -26,21 +26,20 @@ import time
 
 import numpy as np
 
-from falcon_unzip_tpu.config import PipelineConfig
-from falcon_unzip_tpu.io.fasta import read_fasta, write_fasta, write_fastq
-from falcon_unzip_tpu.io.ingest import read_seqs
-from falcon_unzip_tpu.io.serialize import serialize
-from falcon_unzip_tpu.oracle.hmm import params_for_read_qv
-from falcon_unzip_tpu.oracle.phasing import PhasingConfig
-from falcon_unzip_tpu.parallel.checkpoint import Stage
-from falcon_unzip_tpu.seq import decode
-from falcon_unzip_tpu.utils.metrics import MetricsLog, assembly_stats
-
 from .. import device as _device
+from ..config import PipelineConfig
+from ..io.fasta import read_fasta, write_fasta, write_fastq
+from ..io.ingest import read_seqs
+from ..io.serialize import serialize
 from ..models.aligner import AlignerConfig, AlnSet, ReadToContigAligner
 from ..models.phaser import template_route_votes
 from ..models.polisher import Polisher, PolisherConfig, phred_to_tiers
 from ..ops.pairhmm import params_vector
+from ..oracle.hmm import params_for_read_qv
+from ..oracle.phasing import PhasingConfig
+from ..parallel.checkpoint import Stage
+from ..seq import decode
+from ..utils.metrics import MetricsLog, assembly_stats
 
 logger = logging.getLogger(__name__)
 
@@ -264,7 +263,7 @@ def _phase_route_mask(aln, ctg_ids: list[int], t_lens: list[int],
     phase_ops is accepted for API compatibility and unused — the vote
     path has no collective component."""
     from ..models.phaser import template_route_votes
-    from falcon_unzip_tpu.oracle.phasing import PhasingConfig
+    from ..oracle.phasing import PhasingConfig
     keep = np.ones(len(aln), bool)
     ph_cfg = PhasingConfig(
         min_depth=cfg.phase.min_depth,

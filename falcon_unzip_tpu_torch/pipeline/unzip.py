@@ -22,22 +22,20 @@ import time
 
 import numpy as np
 
-from falcon_unzip_tpu.config import PipelineConfig
-from falcon_unzip_tpu.io.fasta import read_fasta, write_fasta
-from falcon_unzip_tpu.io.serialize import deserialize, serialize
-from falcon_unzip_tpu.oracle.phasing import PhasingConfig
-from falcon_unzip_tpu.parallel.checkpoint import Stage
-from falcon_unzip_tpu.seq import SeqBatch, decode
-from falcon_unzip_tpu.utils.metrics import (MetricsLog, assembly_stats,
-                                            phase_block_stats)
-
 from .. import device as _device
+from ..config import PipelineConfig
 from ..coords import write_m4
+from ..io.fasta import read_fasta, write_fasta
+from ..io.serialize import deserialize, serialize
 from ..models.aligner import AlignerConfig, AlnSet, ReadToContigAligner
 from ..models.overlapper import OverlapperConfig, PreadOverlapper
 from ..models.phaser import phase_contigs_batched, phased_reads_table
 from ..models.unzipper import (OvlpFilterConfig, UnzipConfig, Unzipper,
                                phase_filter_mask, place_haplotigs)
+from ..oracle.phasing import PhasingConfig
+from ..parallel.checkpoint import Stage
+from ..seq import SeqBatch, decode
+from ..utils.metrics import MetricsLog, assembly_stats, phase_block_stats
 
 logger = logging.getLogger(__name__)
 
@@ -156,7 +154,7 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
     ovl_prefetch = None
     if (cfg.overlap.prefetch
             and not (hasm_probe.is_done() and phasing_probe.is_done())):
-        from falcon_unzip_tpu.parallel.dataflow import Prefetch
+        from ..parallel.dataflow import Prefetch
         ovl_prefetch = Prefetch("overlap-compute", _compute_overlaps)
 
     align_stage = Stage(out, "1-align",
@@ -328,7 +326,7 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
                                      names=preads.names)
             res.graph.write_utg_data(os.path.join(out, "utg_data"),
                                      names=preads.names)
-            from falcon_unzip_tpu.io.gfa import write_ctg_paths, write_sg_gfa
+            from ..io.gfa import write_ctg_paths, write_sg_gfa
             write_ctg_paths(os.path.join(out, "ctg_paths"), res.p_ctg,
                             res.p_paths, res.graph, names=preads.names)
             write_sg_gfa(os.path.join(out, "sg.gfa"), res.graph,

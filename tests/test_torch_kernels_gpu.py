@@ -1,12 +1,14 @@
 """CUDA kernels == their plain torch versions, on the card.
 
-The banded wavefront and traceback must be bit-exact; the float kernels
-(pair-HMM forward, Arrow splice sweeps) within
-``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal.
+The banded wavefront, its traceback and the pair-HMM step ablation must
+be bit-exact; the float kernels (pair-HMM forward, Arrow splice sweeps)
+within ``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots
+equal.
 
 Marked ``gpu``: these need an NVIDIA GPU and nvcc and skip elsewhere.
 Run them on a GPU machine with
-``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+``python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py``
+(the repository's conftest imports JAX; this file imports only the port).
 """
 import hashlib
 
@@ -14,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from falcon_unzip_tpu.seq import SeqBatch
-from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import banded_align as ba
+from falcon_unzip_tpu_torch.seq import SeqBatch
+from falcon_unzip_tpu_torch.utils.simulate import mutate_read, random_genome
 
 pytestmark = pytest.mark.gpu
 
@@ -70,10 +72,11 @@ def test_kernels_match_plain_on_card(cuda, W, mode):
 
 
 def test_golden_pipeline_on_card(cuda, tmp_path):
-    from falcon_unzip_tpu.config import PipelineConfig
-    from falcon_unzip_tpu.io.fasta import write_fasta
-    from falcon_unzip_tpu.seq import decode
-    from falcon_unzip_tpu.utils.simulate import make_diploid, simulate_reads
+    from falcon_unzip_tpu_torch.config import PipelineConfig
+    from falcon_unzip_tpu_torch.io.fasta import write_fasta
+    from falcon_unzip_tpu_torch.seq import decode
+    from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
+                                                       simulate_reads)
     from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
     d = str(tmp_path)
     dip = make_diploid(length=6000, het_rate=0.02, seed=77,
@@ -156,3 +159,31 @@ def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
     _close(k_cur, p_cur)
     _close(k_mut, p_mut)
     assert _kernels.ARROW.launches == 1
+
+
+@pytest.mark.parametrize("Dmax", [33, 385, 1025])
+def test_ablation_kernel_equals_plain_on_card(cuda, Dmax):
+    """From the NEG start (out NEG everywhere) bit-exact; at the probe,
+    where each part changes out, bit-exact without the logaddexps and
+    within 1e-5 relative with them."""
+    from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
+    rng = np.random.default_rng(Dmax)
+    qg = torch.from_numpy(
+        rng.integers(0, 5, size=(37, 1024)).astype(np.int32)).to(cuda)
+    neg = torch.from_numpy(pa.neg_init(37, 128)).to(cuda)
+    probe = [torch.from_numpy(x).to(cuda)
+             for x in pa.probe_inputs(37, 1024, 128, Dmax)]
+    for feats in pa.FEATURE_SETS:
+        _kernels.reset_counts()
+        k = pa.pairhmm_ablate(qg, neg, feats, Dmax=Dmax)
+        p = pa.pairhmm_ablate_plain(qg, neg, feats, Dmax=Dmax)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), feats                 # tolerance 0
+        assert _kernels.ABLATE.launches == 1
+        k = pa.pairhmm_ablate(*probe, feats, Dmax=Dmax)
+        p = pa.pairhmm_ablate_plain(*probe, feats, Dmax=Dmax)
+        assert bool((p > -1e29).all())
+        if "lse" in feats:
+            torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(k, p), feats             # tolerance 0

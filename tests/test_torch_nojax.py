@@ -1,9 +1,11 @@
 """The port runs without JAX, and never silently leaves its device.
 
-A subprocess blocks ``import jax`` (as on a machine that has no JAX),
-imports every module of the port and runs 3-unzip and 4-polish on a small
-sim on the CPU.  The sources must hold no JAX import, and asking for CUDA
-without a GPU must raise.
+A subprocess blocks ``import jax`` (as on a machine that has no JAX) and
+``import falcon_unzip_tpu`` (the reference package), imports every module
+of the port and runs 3-unzip and 4-polish on a small sim on the CPU,
+built with the port's own readers and simulator.  The sources (and
+``chip_smoke.py``) must import neither JAX nor the reference, and asking
+for CUDA without a GPU must raise.
 """
 import ast
 import json
@@ -24,14 +26,15 @@ REPO = os.path.dirname(PKG)
 _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["falcon_unzip_tpu"] = None   # and any import of the reference
 import importlib, os, pkgutil
 import falcon_unzip_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-from falcon_unzip_tpu.config import PipelineConfig
-from falcon_unzip_tpu.io.fasta import write_fasta
-from falcon_unzip_tpu.seq import decode
-from falcon_unzip_tpu.utils.simulate import make_diploid, simulate_reads
+from falcon_unzip_tpu_torch.config import PipelineConfig
+from falcon_unzip_tpu_torch.io.fasta import write_fasta
+from falcon_unzip_tpu_torch.seq import decode
+from falcon_unzip_tpu_torch.utils.simulate import make_diploid, simulate_reads
 from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
 d = sys.argv[1]
 dip = make_diploid(length=4000, het_rate=0.02, seed=5, het_span=(0.3, 0.7))
@@ -51,7 +54,7 @@ from falcon_unzip_tpu_torch.pipeline.quiver import run_quiver
 res = run_quiver(cfg, device="cpu")
 assert res["p"]["total_bp"] >= 3600, res
 assert os.path.getsize(d + "/out/4-polish/cns_h_ctg.fastq") > 0
-assert not any(k == "jax" or k.startswith("jax.")
+assert not any(k.split(".")[0] in ("jax", "falcon_unzip_tpu")
                for k, v in sys.modules.items() if v is not None)
 print("NOJAX-OK")
 """
@@ -66,21 +69,12 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX-OK" in proc.stdout
 
 
-# reference modules that import JAX (directly or through an import)
-JAX_MODULES = {f"falcon_unzip_tpu.{m}" for m in (
-    "ops.banded_align", "ops.pallas_align", "ops.arrow", "ops.pairhmm",
-    "ops.pallas_pairhmm", "ops.consensus", "ops.pileup", "ops.association",
-    "models.aligner", "models.overlapper", "models.phaser",
-    "models.polisher", "models.unzipper", "models.dedup",
-    "pipeline.unzip", "pipeline.quiver", "parallel.sharding",
-    "parallel.mesh", "parallel.collectives", "coords", "io.overlaps")}
-
-
 def _sources():
     for base, _, names in os.walk(PKG):
         for nm in names:
             if nm.endswith(".py"):
                 yield os.path.join(base, nm)
+    yield os.path.join(REPO, "chip_smoke.py")
 
 
 def test_no_jax_import_in_port_sources():
@@ -96,8 +90,7 @@ def test_no_jax_import_in_port_sources():
             else:
                 continue
             for mod in mods:
-                top = mod.split(".")[0]
-                if top == "jax" or mod in JAX_MODULES:
+                if mod.split(".")[0] in ("jax", "falcon_unzip_tpu"):
                     bad.append(f"{path}:{node.lineno} {mod}")
     assert not bad, bad
 
