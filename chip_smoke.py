@@ -10,9 +10,14 @@ non-zero:
 2. build the CUDA kernels from falcon_unzip_tpu_torch/csrc/ (one nvcc per
    source, all at once);
 3. kernel parity: each kernel against its plain torch version on the card
-   at the main path's shapes.  Banded wavefront and traceback: P=256;
-   W 128/256/512; global, qglocal and tglocal; query buckets 1024/2048
-   with their target buckets; bit-exact.  Pair-HMM forward: P=256, 512 bp
+   at the main path's shapes.  Banded wavefront and traceback (the moves
+   and the fused packed and summary epilogues against traceback_batch_plain
+   and its compositions with pack_moves2 / _combine_results and
+   _summarize_moves): P=256; W 128/256/512; global, qglocal and tglocal;
+   query buckets 1024/2048/4096 with their target buckets; then a batch of
+   short pairs in a long bucket (n + m under half of Dmax: the early stop
+   and the MOVE_NONE tail) and a batch of pairs that cannot align (dist
+   INF); all bit-exact.  Pair-HMM forward: P=256, 512 bp
    windows (Dmax 1025), W 64/128/256.  Arrow splice sweeps: P=512,
    Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6).  Seeded pairs
    at 0% and 15% error; the float kernels within
@@ -134,6 +139,27 @@ def _time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _short_pairs(rng, P, bq, mode):
+    """Mostly short pairs (60 .. 400 bases, so n + m is far under half of
+    the schedule) beside eight full-length ones that keep the bucket's
+    schedule long."""
+    qs, ts = _pairs(rng, 8, bq, mode)
+    q2, t2 = _pairs(rng, P - 8, 400, mode)
+    return qs + [q[:400] for q in q2], ts + t2
+
+
+def _unalignable_pairs(rng, P, bq, mode):
+    """Queries near the bucket's length against unrelated targets of a
+    few hundred bases: row n never enters the band, so the local modes
+    find no end (dist INF, end_j -1)."""
+    from falcon_unzip_tpu_torch.utils.simulate import random_genome
+    qs = [random_genome(int(rng.integers(bq - 200, bq + 1)),
+                        int(rng.integers(1 << 30))) for _ in range(P)]
+    ts = [random_genome(int(rng.integers(100, 400)),
+                        int(rng.integers(1 << 30))) for _ in range(P)]
+    return qs, ts
+
+
 def phase_parity_align(torch, np) -> dict:
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
@@ -142,67 +168,105 @@ def phase_parity_align(torch, np) -> dict:
     rng = np.random.default_rng(2024)
     P = 256
     shapes = {}
-    for W in (128, 256, 512):
-        for mode in ("global", "qglocal", "tglocal"):
-            for bq in (1024, 2048, 4096):
-                qs, ts = _pairs(rng, P, bq, mode)
-                bt = _t_bucket(max(len(x) for x in ts), bq)
-                q, n = _padded(np, qs, bq)
-                t, m = _padded(np, ts, bt)
-                # the schedule exactly as BandedAligner.dispatch cuts it
-                Dmax, lo = ba.build_schedule(bq, bt, W)
-                need = int((n + m).max()) + 1
-                Dmax = min(Dmax, -(-need // 1024) * 1024)
-                lo = lo[:Dmax]
-                qg, trg, G = ba.prepare_batch(q, t, W)
-                args = (torch.from_numpy(qg).to(dev),
-                        torch.from_numpy(trg).to(dev),
-                        torch.from_numpy(n).to(dev),
-                        torch.from_numpy(m).to(dev), lo)
-                kw = dict(W=W, Lt=bt, G=G, mode=mode)
-                k = ba.banded_align_batch(*args, **kw)
-                t0 = time.perf_counter()
-                p = ba.banded_align_batch_plain(*args, **kw)
-                torch.cuda.synchronize()
-                plain_ms = 1e3 * (time.perf_counter() - t0)
-                wf_err = max(int((k[key] - p[key]).abs().max())
-                             for key in ("dist", "end_i", "end_j"))
-                wf_err = max(wf_err, int((ba.unpack_bp(k["bp"], Dmax).int()
-                                          - ba.unpack_bp(p["bp"], Dmax).int()
-                                          ).abs().max()))
-                for key in ("dist", "end_i", "end_j", "bp"):
-                    if not torch.equal(k[key], p[key]):
-                        _fail(f"wavefront {key} differs at W={W} {mode} "
-                              f"bq={bq}")
-                steps = Dmax - 1
-                tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
-                                        max_steps=steps)
-                t0 = time.perf_counter()
-                tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"],
-                                              p["end_j"], max_steps=steps)
-                torch.cuda.synchronize()
-                plain_tb_ms = 1e3 * (time.perf_counter() - t0)
-                tb_err = int((tk.int() - tp.int()).abs().max())
-                if not torch.equal(tk, tp):
-                    _fail(f"traceback differs at W={W} {mode} bq={bq}")
-                n_moves = int((tk != ba.MOVE_NONE).sum())
-                wf_ms = _time_ms(torch, lambda: ba.banded_align_batch(
-                    *args, **kw), 3)
-                tb_ms = _time_ms(torch, lambda: ba.traceback_batch(
-                    k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
-                finite = int((k["dist"] < 1 << 20).sum())
-                shapes[(W, mode, bq)] = dict(
-                    wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
-                    tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err,
-                    wf_work=bench.wavefront_work(
-                        n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
-                        LTG=trg.shape[1]),
-                    tb_work=bench.traceback_work(n_moves, P=P,
-                                                 max_steps=steps))
-                print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}"
-                      f" finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
-                      f" (plain {plain_ms:.1f} ms) | traceback {tb_ms:.3f} ms"
-                      f" (plain {plain_tb_ms:.1f} ms)", flush=True)
+    cases = [(W, mode, bq, _pairs, "")
+             for W in (128, 256, 512)
+             for mode in ("global", "qglocal", "tglocal")
+             for bq in (1024, 2048, 4096)]
+    # appended, so that the seeded pairs of the 27 shapes stay what they were
+    cases += [(256, mode, 2048, _short_pairs, " short pairs")
+              for mode in ("global", "tglocal")]
+    cases += [(256, mode, 2048, _unalignable_pairs, " unalignable pairs")
+              for mode in ("qglocal", "tglocal")]
+    for W, mode, bq, make, tag in cases:
+        qs, ts = make(rng, P, bq, mode)
+        bt = _t_bucket(max(len(x) for x in ts), bq)
+        q, n = _padded(np, qs, bq)
+        t, m = _padded(np, ts, bt)
+        # the schedule exactly as BandedAligner.dispatch cuts it
+        Dmax, lo = ba.build_schedule(bq, bt, W)
+        need = int((n + m).max()) + 1
+        Dmax = min(Dmax, -(-need // 1024) * 1024)
+        lo = lo[:Dmax]
+        qg, trg, G = ba.prepare_batch(q, t, W)
+        args = (torch.from_numpy(qg).to(dev),
+                torch.from_numpy(trg).to(dev),
+                torch.from_numpy(n).to(dev),
+                torch.from_numpy(m).to(dev), lo)
+        kw = dict(W=W, Lt=bt, G=G, mode=mode)
+        k = ba.banded_align_batch(*args, **kw)
+        t0 = time.perf_counter()
+        p = ba.banded_align_batch_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        wf_err = max(int((k[key] - p[key]).abs().max())
+                     for key in ("dist", "end_i", "end_j"))
+        wf_err = max(wf_err, int((ba.unpack_bp(k["bp"], Dmax).int()
+                                  - ba.unpack_bp(p["bp"], Dmax).int()
+                                  ).abs().max()))
+        for key in ("dist", "end_i", "end_j", "bp"):
+            if not torch.equal(k[key], p[key]):
+                _fail(f"wavefront {key} differs at W={W} {mode} "
+                      f"bq={bq}{tag}")
+        steps = Dmax - 1
+        tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
+                                max_steps=steps)
+        t0 = time.perf_counter()
+        tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"],
+                                      p["end_j"], max_steps=steps)
+        torch.cuda.synchronize()
+        plain_tb_ms = 1e3 * (time.perf_counter() - t0)
+        tb_err = int((tk.int() - tp.int()).abs().max())
+        if not torch.equal(tk, tp):
+            _fail(f"traceback differs at W={W} {mode} bq={bq}{tag}")
+        n_moves = int((tk != ba.MOVE_NONE).sum())
+        ends = (k["dist"], k["end_i"], k["end_j"])
+        epi_ms = {}
+        # the plain compositions, over the plain moves made just above
+        # (what traceback_packed_plain / traceback_summary_plain compute)
+        plain_ends = (p["dist"], p["end_i"], p["end_j"])
+        wants = {"packed": ba._combine_results(ba.pack_moves2(tp),
+                                               *plain_ends),
+                 "summary": ba._summarize_moves(tp, *plain_ends)}
+        for name, want in wants.items():
+            fused = getattr(ba, f"traceback_{name}")
+            got = fused(k["bp"], lo, *ends, max_steps=steps)
+            if not torch.equal(got, want):
+                _fail(f"traceback {name} epilogue differs at W={W} "
+                      f"{mode} bq={bq}{tag}")
+            epi_ms[name] = _time_ms(torch, lambda: fused(
+                k["bp"], lo, *ends, max_steps=steps), 3)
+        finite = int((k["dist"] < 1 << 20).sum())
+        if tag == " short pairs" and \
+                2 * int(np.sort(n + m)[-9]) >= Dmax:
+            _fail(f"the short pairs are not short: Dmax {Dmax}")
+        if tag == " unalignable pairs" and finite:
+            _fail(f"{finite} of the unalignable pairs aligned")
+        wf_ms = _time_ms(torch, lambda: ba.banded_align_batch(
+            *args, **kw), 3)
+        tb_ms = _time_ms(torch, lambda: ba.traceback_batch(
+            k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
+        if tag:
+            print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} "
+                  f"Dmax={Dmax}{tag}: finite={finite}/{P}, "
+                  f"{n_moves} moves exact | wavefront {wf_ms:.3f} "
+                  f"ms | traceback moves {tb_ms:.3f} ms, packed "
+                  f"{epi_ms['packed']:.3f} ms, summary "
+                  f"{epi_ms['summary']:.3f} ms", flush=True)
+            continue
+        shapes[(W, mode, bq)] = dict(
+            wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
+            tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err,
+            wf_work=bench.wavefront_work(
+                n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
+                LTG=trg.shape[1]),
+            tb_work=bench.traceback_work(n_moves, P=P,
+                                         max_steps=steps))
+        print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}"
+              f" finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
+              f" (plain {plain_ms:.1f} ms) | traceback {tb_ms:.3f} ms"
+              f" (plain {plain_tb_ms:.1f} ms), packed "
+              f"{epi_ms['packed']:.3f} ms, summary "
+              f"{epi_ms['summary']:.3f} ms", flush=True)
     return shapes
 
 

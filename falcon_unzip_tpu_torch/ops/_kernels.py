@@ -143,7 +143,8 @@ def _load() -> dict:
                 vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                 vp, vp, vp, vp, vp]
             lib.fu_banded_wavefront.restype = ci
-            lib.fu_traceback.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp]
+            lib.fu_traceback.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
+                                         ci, vp]
             lib.fu_traceback.restype = ci
             hmm = ctypes.CDLL(paths["pairhmm"])
             hmm.fu_pairhmm_forward.argtypes = (
@@ -226,18 +227,39 @@ def banded_wavefront(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
     return out
 
 
+EPILOGUES = {"moves": 0, "packed": 1, "summary": 2}
+
+
 def traceback(bp: torch.Tensor, end_i: torch.Tensor, end_j: torch.Tensor,
-              *, W: int, Dmax: int, max_steps: int) -> torch.Tensor:
-    """Launch kernel 2: reverse-order moves (P, max_steps) int8."""
+              *, W: int, Dmax: int, max_steps: int, epilogue: str = "moves",
+              dist: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch kernel 2 with one of its epilogues:
+
+    "moves": reverse-order moves (P, max_steps) int8;
+    "packed": (P, ceil(max_steps / 16) + 3) int32, the moves 2 bits each,
+    then dist, end_i, end_j;
+    "summary": (P, 7) int32: dist, end_j, n_t, lead, trail, n_up, end_i.
+    The last two read dist (P,) int32."""
     dev = bp.device
     if dev.type != "cuda":
         raise ValueError(f"traceback needs CUDA tensors, got {dev}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown traceback epilogue {epilogue!r}")
+    if W not in (32, 64, 128, 256, 512):
+        raise ValueError(f"band width W={W} not supported by the kernel")
     P = bp.shape[1]
     _need(bp, torch.int32, (-(-Dmax // 16), P, W), "bp", dev)
     _need(end_i, torch.int32, (P,), "end_i", dev)
     _need(end_j, torch.int32, (P,), "end_j", dev)
-    out = torch.empty((P, max_steps), dtype=torch.int8, device=dev)
-    if P == 0 or max_steps == 0:
+    if epilogue == "moves":
+        out = torch.empty((P, max_steps), dtype=torch.int8, device=dev)
+    else:
+        if dist is None:
+            raise ValueError(f"the {epilogue} epilogue needs dist")
+        _need(dist, torch.int32, (P,), "dist", dev)
+        cols = 7 if epilogue == "summary" else -(-max_steps // 16) + 3
+        out = torch.empty((P, cols), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
         return out
     lib = _load()["banded_align"]
     with torch.cuda.device(dev):
@@ -246,7 +268,8 @@ def traceback(bp: torch.Tensor, end_i: torch.Tensor, end_j: torch.Tensor,
         code = lib.fu_traceback(bp.data_ptr(), P, W, Dmax,
                                 end_i.data_ptr(), end_j.data_ptr(),
                                 max_steps, out.data_ptr(),
-                                stream.cuda_stream)
+                                stream.cuda_stream, EPILOGUES[epilogue],
+                                None if dist is None else dist.data_ptr())
         _check(code, "traceback launch")
         if span is not None:
             span[1].record(stream)

@@ -7,10 +7,13 @@ copies.  The device work has two implementations of the same integer
 recurrence:
 
 * on CUDA tensors, the hand-written kernels of ``csrc/banded_align.cu``
-  (``_kernels.banded_wavefront`` and ``_kernels.traceback``);
+  (``_kernels.banded_wavefront`` and ``_kernels.traceback``, the latter
+  with the move packing or the 7-int summary fused in as an epilogue);
 * on CPU tensors, the plain torch versions below
   (``banded_align_batch_plain``, ``traceback_batch_plain``), Python loops
-  over antidiagonals / traceback steps.
+  over antidiagonals / traceback steps, and behind them ``pack_moves2`` /
+  ``_combine_results`` and ``_summarize_moves`` (composed in
+  ``traceback_packed_plain`` and ``traceback_summary_plain``).
 
 Both emit the backpointers in one packed layout, 2 bits per cell:
 ``bp[d // 16, p, w] >> (2 * (d % 16)) & 3`` as int32 (the layout of the
@@ -293,6 +296,52 @@ def _summarize_moves(moves_rev, dist, end_i, end_j) -> torch.Tensor:
                        dim=1)
 
 
+def traceback_packed_plain(bp, lo_arr, dist, end_i, end_j, *,
+                           max_steps: int) -> torch.Tensor:
+    """Plain version of the kernel's "packed" epilogue: the traceback, its
+    moves 2 bits each, then dist, end_i, end_j; (P, K + 3) int32."""
+    moves_rev = traceback_batch_plain(bp, lo_arr, end_i, end_j,
+                                      max_steps=max_steps)
+    return _combine_results(pack_moves2(moves_rev), dist, end_i, end_j)
+
+
+def traceback_summary_plain(bp, lo_arr, dist, end_i, end_j, *,
+                            max_steps: int) -> torch.Tensor:
+    """Plain version of the kernel's "summary" epilogue: the traceback
+    and ``_summarize_moves`` of it; (P, 7) int32."""
+    moves_rev = traceback_batch_plain(bp, lo_arr, end_i, end_j,
+                                      max_steps=max_steps)
+    return _summarize_moves(moves_rev, dist, end_i, end_j)
+
+
+def _traceback_fused(epilogue: str, bp, lo_arr, dist, end_i, end_j, *,
+                     max_steps: int) -> torch.Tensor:
+    if bp.is_cuda:
+        return _kernels.traceback(bp, end_i, end_j, W=bp.shape[2],
+                                  Dmax=len(lo_arr), max_steps=max_steps,
+                                  epilogue=epilogue, dist=dist)
+    plain = (traceback_packed_plain if epilogue == "packed"
+             else traceback_summary_plain)
+    return plain(bp, lo_arr, dist, end_i, end_j, max_steps=max_steps)
+
+
+def traceback_packed(bp, lo_arr, dist, end_i, end_j, *,
+                     max_steps: int) -> torch.Tensor:
+    """Traceback with the packed moves and dist/end_i/end_j as one
+    (P, K + 3) int32 tensor: one kernel launch for CUDA tensors, the
+    plain composition for CPU tensors."""
+    return _traceback_fused("packed", bp, lo_arr, dist, end_i, end_j,
+                            max_steps=max_steps)
+
+
+def traceback_summary(bp, lo_arr, dist, end_i, end_j, *,
+                      max_steps: int) -> torch.Tensor:
+    """Traceback reduced to the (P, 7) int32 summary: one kernel launch
+    for CUDA tensors, the plain composition for CPU tensors."""
+    return _traceback_fused("summary", bp, lo_arr, dist, end_i, end_j,
+                            max_steps=max_steps)
+
+
 def unpack_moves2(packed: np.ndarray, S: int) -> np.ndarray:
     """Inverse of pack_moves2 on host: (P, S16/16) int32 -> (P, S) int8."""
     p = np.asarray(packed)
@@ -448,16 +497,13 @@ class BandedAligner:
         handle = {"res": None, "steps": steps, "combined": None,
                   "summary": None}
         if want_moves == "summary":
-            moves_rev = traceback_batch(res["bp"], lo, res["end_i"],
-                                        res["end_j"], max_steps=steps)
-            handle["summary"] = _summarize_moves(
-                moves_rev, res["dist"], res["end_i"], res["end_j"])
+            handle["summary"] = traceback_summary(
+                res["bp"], lo, res["dist"], res["end_i"], res["end_j"],
+                max_steps=steps)
         elif want_moves:
-            moves_rev = traceback_batch(res["bp"], lo, res["end_i"],
-                                        res["end_j"], max_steps=steps)
-            handle["combined"] = _combine_results(
-                pack_moves2(moves_rev), res["dist"], res["end_i"],
-                res["end_j"])
+            handle["combined"] = traceback_packed(
+                res["bp"], lo, res["dist"], res["end_i"], res["end_j"],
+                max_steps=steps)
         else:
             handle["res"] = {k: v for k, v in res.items() if k != "bp"}
         return handle

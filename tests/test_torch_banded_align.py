@@ -3,7 +3,8 @@
 Inputs are made from seeds with numpy and go through both packages.
 Every comparison is bit-exact (integer DP): dist, end cells, every
 backpointer, the traceback moves, the packed moves and the 7-int
-summaries.
+summaries, also through the plain compositions that stand behind the CUDA
+traceback's fused epilogues.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +13,7 @@ import torch
 
 from falcon_unzip_tpu.ops import banded_align as ref
 from falcon_unzip_tpu.oracle import align as oa
-from falcon_unzip_tpu.seq import SeqBatch
+from falcon_unzip_tpu.seq import PAD, SeqBatch
 from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import banded_align as port
@@ -129,10 +130,112 @@ def test_collect_summaries_concatenates_chunks():
     assert len(port.BandedAligner.collect_summaries([])["dist"]) == 0
 
 
+def _hard_pairs(W: int, mode: str, seed: int):
+    """Seeded pairs in one long bucket (512): short pairs (n + m far under
+    half of the schedule), an n = 0 and an m = 0 pair (the latter an
+    all-insertion path: every move is MOVE_UP), a pair that cannot align
+    (dist INF in the local modes) and two full-length ones."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k in range(4):                                    # short pairs
+        t = random_genome(int(rng.integers(40, 90)), seed * 50 + k)
+        src = t if mode == "global" else t[: int(rng.integers(20, len(t)))]
+        qs.append(mutate_read(src, 0.15 * (k % 2), rng))
+        ts.append(t)
+    for k in range(2):                                    # full length
+        t = random_genome(int(rng.integers(440, 500)), seed * 60 + k)
+        src = t if mode == "global" else t[30 : int(rng.integers(300, 400))]
+        qs.append(mutate_read(src, 0.15 * k, rng))
+        ts.append(t)
+    qs.append(qs[0][:0])                                  # n = 0
+    ts.append(ts[0])
+    qs.append(random_genome(70, seed + 1))                # m = 0
+    ts.append(ts[0][:0])
+    qs.append(random_genome(W + 200, seed + 2))           # cannot align
+    ts.append(random_genome(50, seed + 3))
+    q = np.full((len(qs), 512), PAD, np.int8)
+    t = np.full((len(ts), 512), PAD, np.int8)
+    for k in range(len(qs)):
+        q[k, : len(qs[k])] = qs[k]
+        t[k, : len(ts[k])] = ts[k]
+    return (q, t, np.array([len(x) for x in qs], np.int32),
+            np.array([len(x) for x in ts], np.int32))
+
+
+def _both(W, mode, seed):
+    """The JAX scan and the port's plain wavefront on _hard_pairs."""
+    q, t, n, m = _hard_pairs(W, mode, seed)
+    Dmax, lo = ref.build_schedule(q.shape[1], t.shape[1], W)
+    qg, trg, G = ref.prepare_batch(q, t, W)
+    r = ref.banded_align_batch(
+        jnp.asarray(qg), jnp.asarray(trg), jnp.asarray(n), jnp.asarray(m),
+        jnp.asarray(lo), W=W, Lt=t.shape[1], G=G, mode=mode)
+    p = port.banded_align_batch_plain(
+        torch.from_numpy(qg), torch.from_numpy(trg), torch.from_numpy(n),
+        torch.from_numpy(m), lo, W=W, Lt=t.shape[1], G=G, mode=mode)
+    return n, m, Dmax, lo, r, p
+
+
+@pytest.mark.parametrize("W", [128, 256])
+@pytest.mark.parametrize("mode", MODES)
+def test_epilogue_compositions_match_jax(W, mode):
+    """The plain versions behind the kernel's packed and summary
+    epilogues == the JAX package's pack_moves2 / _combine_results /
+    _summarize_moves over traceback_batch, bit for bit."""
+    n, m, Dmax, lo, r, p = _both(W, mode, seed=W + 3 * len(mode))
+    assert int((n + m)[:4].max()) < Dmax // 2
+    if mode != "global":
+        assert int(p["dist"][-1]) == int(oa.INF)
+        assert int(p["end_j"][-1]) == -1
+    for steps in (Dmax - 1, 100):
+        mr = ref.traceback_batch(r["bp"], jnp.asarray(lo), r["end_i"],
+                                 r["end_j"], max_steps=steps)
+        want_packed = np.asarray(ref._combine_results(
+            ref.pack_moves2(mr), r["dist"], r["end_i"], r["end_j"]))
+        want_summary = np.asarray(ref._summarize_moves(
+            mr, r["dist"], r["end_i"], r["end_j"]))
+        ends = (p["dist"], p["end_i"], p["end_j"])
+        for fn in (port.traceback_packed, port.traceback_packed_plain):
+            got = fn(p["bp"], lo, *ends, max_steps=steps)
+            assert got.dtype == torch.int32
+            assert np.array_equal(got.numpy(), want_packed), fn.__name__
+        for fn in (port.traceback_summary, port.traceback_summary_plain):
+            got = fn(p["bp"], lo, *ends, max_steps=steps)
+            assert got.dtype == torch.int32
+            assert np.array_equal(got.numpy(), want_summary), fn.__name__
+    # the all-insertion pair (m = 0): every move MOVE_UP, so the leading
+    # and the trailing run are the whole path
+    s = port.traceback_summary(p["bp"], lo, p["dist"], p["end_i"],
+                               p["end_j"], max_steps=Dmax - 1).numpy()[-2]
+    assert (s[2], s[3], s[4], s[5]) == (0, 70, 70, 70)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_bp_past_the_corner_is_move_none(mode):
+    """Past a pair's corner d = n + m every backpointer of the plain
+    version (and of the JAX scan) is MOVE_NONE up to the schedule's end:
+    the kernel stores these words without computing them."""
+    n, m, Dmax, lo, r, p = _both(128, mode, seed=31)
+    bp = port.unpack_bp(p["bp"], Dmax).numpy()
+    assert np.array_equal(np.asarray(r["bp"]), bp)
+    seen = 0
+    for k in range(len(n)):
+        past = bp[int(n[k] + m[k]) + 1 :, k, :]
+        assert (past == port.MOVE_NONE).all(), k
+        seen += past.shape[0]
+    assert seen > len(n) * Dmax // 2
+    # the bits of d >= Dmax in the last packed word stay 0
+    used = 2 * (Dmax % 16)
+    if used:
+        assert not (p["bp"][-1].numpy().view(np.uint32) >> used).any()
+
+
 def test_cpu_path_launches_no_kernel():
     _kernels.reset_counts()
     q, t, n, m, _, _ = _pairs(128, "tglocal", seed=5)
-    port.BandedAligner(W=128, mode="tglocal", device="cpu")(q, t, n, m)
+    aligner = port.BandedAligner(W=128, mode="tglocal", device="cpu")
+    for want in (True, "summary", False):
+        aligner(q, t, n, m, want_moves=want)
     assert all(k.launches == 0 for k in _kernels.KERNELS)
 
 
@@ -148,6 +251,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         _kernels.traceback(torch.zeros((4, len(n), 128), dtype=torch.int32),
                            torch.from_numpy(n), torch.from_numpy(m), W=128,
                            Dmax=64, max_steps=63)
+    for epilogue in ("packed", "summary"):
+        with pytest.raises(ValueError):
+            _kernels.traceback(
+                torch.zeros((4, len(n), 128), dtype=torch.int32),
+                torch.from_numpy(n), torch.from_numpy(m), W=128, Dmax=64,
+                max_steps=63, epilogue=epilogue, dist=torch.from_numpy(n))
 
 
 def test_unpack_bp_inverts_packing():

@@ -1,9 +1,9 @@
 """CUDA kernels == their plain torch versions, on the card.
 
-The banded wavefront, its traceback and the pair-HMM step ablation must
-be bit-exact; the float kernels (pair-HMM forward, Arrow splice sweeps)
-within ``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots
-equal.
+The banded wavefront, its traceback (the moves and the fused packed and
+summary epilogues) and the pair-HMM step ablation must be bit-exact; the
+float kernels (pair-HMM forward, Arrow splice sweeps) within
+``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal.
 
 Marked ``gpu``: these need an NVIDIA GPU and nvcc and skip elsewhere.
 Run them on a GPU machine with
@@ -69,6 +69,160 @@ def test_kernels_match_plain_on_card(cuda, W, mode):
     assert torch.equal(tk, tp)
     assert (_kernels.WAVEFRONT.launches, _kernels.TRACEBACK.launches) \
         == (1, 1)
+
+
+def _hard_batch(W, mode, seed):
+    """Pairs that stress the early stop and the traceback's reloads: short
+    pairs in a long bucket (n + m under half of Dmax), n = 0, m = 0, an
+    all-insertion path (query against an empty target, global), pairs
+    that cannot align (dist INF, end_j -1) and ordinary long ones."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k in range(12):                                    # short pairs
+        t = random_genome(int(rng.integers(40, 300)), seed * 77 + k)
+        src = t if mode == "global" else t[: int(rng.integers(20, len(t)))]
+        qs.append(mutate_read(src, 0.15 * (k % 2), rng))
+        ts.append(t)
+    for k in range(6):                                     # long pairs
+        t = random_genome(int(rng.integers(1500, 2300)), seed * 79 + k)
+        src = t if mode == "global" else t[50 : int(rng.integers(900, 1400))]
+        qs.append(mutate_read(src, 0.15 * (k % 2), rng))
+        ts.append(t)
+    qs.append(qs[0][:0])                                   # n = 0
+    ts.append(ts[0])
+    qs.append(random_genome(90, seed + 3))                 # m = 0
+    ts.append(ts[0][:0])
+    for k in range(3):                                     # cannot align
+        qs.append(random_genome(W + 200 + 300 * k, seed + 10 + k))
+        ts.append(random_genome(80, seed + 20 + k))
+    qb, tb = SeqBatch.from_strs(qs), SeqBatch.from_strs(ts)
+    return (qb.data, tb.data, qb.lengths.astype(np.int32),
+            tb.lengths.astype(np.int32))
+
+
+@pytest.mark.parametrize("W", [32, 128, 256, 512])
+@pytest.mark.parametrize("mode", ["global", "qglocal", "tglocal"])
+def test_early_stop_and_epilogues_match_plain_on_card(cuda, W, mode):
+    """Short pairs in a long bucket, degenerate and unalignable pairs:
+    the wavefront, the moves and both fused epilogues equal their plain
+    versions, and bp past d = n + m is MOVE_NONE."""
+    q, t, n, m = _hard_batch(W, mode, seed=3 * W + len(mode))
+    Dmax, lo = ba.build_schedule(q.shape[1], t.shape[1], W)
+    assert int((n + m)[:12].max()) < Dmax // 2
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    args = [torch.from_numpy(x).to(cuda) for x in (qg, trg, n, m)]
+    kw = dict(W=W, Lt=t.shape[1], G=G, mode=mode)
+    p = ba.banded_align_batch_plain(*args, lo, **kw)
+    if mode != "global":
+        assert int((p["dist"] >= 1 << 20).sum()) >= 3
+    k = _kernels.banded_wavefront(*args, Dmax=Dmax, want_bp=True, **kw)
+    for key in ("dist", "end_i", "end_j", "bp"):
+        assert torch.equal(k[key], p[key]), key
+    k_nobp = _kernels.banded_wavefront(*args, Dmax=Dmax, want_bp=False, **kw)
+    for key in ("dist", "end_i", "end_j"):
+        assert torch.equal(k_nobp[key], p[key]), key
+    ends = (p["dist"], p["end_i"], p["end_j"])
+    _kernels.reset_counts()
+    for steps in (Dmax - 1, 100):
+        assert torch.equal(
+            ba.traceback_batch(k["bp"], lo, *ends[1:], max_steps=steps),
+            ba.traceback_batch_plain(p["bp"], lo, *ends[1:],
+                                     max_steps=steps))
+        assert torch.equal(
+            ba.traceback_packed(k["bp"], lo, *ends, max_steps=steps),
+            ba.traceback_packed_plain(p["bp"], lo, *ends, max_steps=steps))
+        assert torch.equal(
+            ba.traceback_summary(k["bp"], lo, *ends, max_steps=steps),
+            ba.traceback_summary_plain(p["bp"], lo, *ends, max_steps=steps))
+    torch.cuda.synchronize()
+    assert _kernels.TRACEBACK.launches == 6
+
+
+def test_rows_too_long_for_shared_memory_on_card(cuda):
+    """A bucket whose guarded rows exceed the kernel's shared-memory
+    staging limit (96 KB a pair): the wavefront reads them where they
+    are, with the same result."""
+    W, L = 128, 50000
+    q0, t0, n, m = _batch(W, "tglocal", seed=5, P=6)
+    q = np.full((len(n), L), 4, np.int8)
+    t = np.full((len(n), L), 4, np.int8)
+    q[:, : q0.shape[1]] = q0
+    t[:, : t0.shape[1]] = t0
+    Dmax, lo = ba.build_schedule(L, L, W)
+    Dmax = min(Dmax, -(-(int((n + m).max()) + 1) // 1024) * 1024)
+    lo = lo[:Dmax]
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    assert qg.shape[1] + trg.shape[1] > 96 * 1024
+    args = [torch.from_numpy(x).to(cuda) for x in (qg, trg, n, m)]
+    kw = dict(W=W, Lt=L, G=G, mode="tglocal")
+    p = ba.banded_align_batch_plain(*args, lo, **kw)
+    assert int((p["dist"] < 1 << 20).sum()) >= 6
+    k = _kernels.banded_wavefront(*args, Dmax=Dmax, want_bp=True, **kw)
+    for key in ("dist", "end_i", "end_j", "bp"):
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.parametrize("p_none", [0.0, 0.002, 0.25])
+def test_traceback_follows_arbitrary_moves_on_card(cuda, p_none):
+    """Random packed moves (mostly diagonal, so the walks are long and
+    drift to the band's edges; with and without MOVE_NONE) and random ends
+    (also outside the band and the schedule): the kernel's steady walk,
+    its window reloads and the clipping of d and w give the plain
+    version's moves, packing and summary."""
+    rng = np.random.default_rng(9)
+    probs = np.array([0.5, 0.25, 0.25, 0.0]) * (1 - p_none)
+    probs[3] = p_none
+    for W, Dmax in ((32, 200), (64, 333), (128, 700), (256, 1500),
+                    (512, 2100)):
+        P = 40
+        _, lo = ba.build_schedule(Dmax - 1, 0, W)
+        fields = rng.choice(4, p=probs, size=(-(-Dmax // 16), P, W, 16))
+        words = (fields.astype(np.int64) << (2 * np.arange(16))).sum(-1)
+        bp = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+        end_i = torch.from_numpy(
+            rng.integers(-5, Dmax, size=P).astype(np.int32))
+        end_j = torch.from_numpy(
+            rng.integers(-5, Dmax, size=P).astype(np.int32))
+        dist = torch.from_numpy(rng.integers(0, 99, size=P).astype(np.int32))
+        cpu = (bp, lo, dist, end_i, end_j)
+        dev = (bp.to(cuda), lo, dist.to(cuda), end_i.to(cuda),
+               end_j.to(cuda))
+        for steps in (Dmax - 1, 37):
+            want = ba.traceback_batch_plain(bp, lo, end_i, end_j,
+                                            max_steps=steps)
+            if p_none == 0.0 and steps > 37:
+                assert int((want != ba.MOVE_NONE).sum(1).max()) > Dmax // 2
+            assert torch.equal(
+                ba.traceback_batch(dev[0], lo, *dev[3:],
+                                   max_steps=steps).cpu(), want)
+            assert torch.equal(
+                ba.traceback_packed(*dev, max_steps=steps).cpu(),
+                ba.traceback_packed_plain(*cpu, max_steps=steps))
+            assert torch.equal(
+                ba.traceback_summary(*dev, max_steps=steps).cpu(),
+                ba.traceback_summary_plain(*cpu, max_steps=steps))
+
+
+def test_aligner_dispatch_is_fused_on_card(cuda):
+    """BandedAligner on the card: one wavefront and one traceback launch
+    a chunk in every mode of want_moves, results equal to the CPU path."""
+    q, t, n, m = _batch(128, "tglocal", seed=21)
+    for want, launches in ((True, (1, 1)), ("summary", (1, 1)),
+                           (False, (1, 0))):
+        _kernels.reset_counts()
+        got = ba.BandedAligner(W=128, mode="tglocal", device="cuda")(
+            q, t, n, m, want_moves=want)
+        assert (_kernels.WAVEFRONT.launches,
+                _kernels.TRACEBACK.launches) == launches
+        ref = ba.BandedAligner(W=128, mode="tglocal", device="cpu")(
+            q, t, n, m, want_moves=want)
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            if key == "moves":
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(got[key], ref[key]))
+            else:
+                assert np.array_equal(got[key], ref[key]), key
 
 
 def test_golden_pipeline_on_card(cuda, tmp_path):
