@@ -19,8 +19,11 @@ non-zero:
    and the MOVE_NONE tail) and a batch of pairs that cannot align (dist
    INF); all bit-exact.  Pair-HMM forward: P=256, 512 bp
    windows (Dmax 1025), W 64/128/256.  Arrow splice sweeps: P=512,
-   Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6).  Seeded pairs
-   at 0% and 15% error; the float kernels within
+   Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6): the raw sweep
+   outputs and the splice scores, then the edge shapes of
+   scripts/tune_arrow.py (padding pairs, n and m at the stripe edges of 1,
+   2 and 4 warps, n > m, n < m, small m, m = LJ - 1 with clipped slots).
+   Seeded pairs at 0% and 15% error; the float kernels within
    |kernel - plain| <= 1e-3 * max(1, |plain|).  Pair-HMM step ablation:
    the five feature sets at the constants of scripts/ablate_pallas.py
    (P=256, W=128, Dmax=1025, LQG=1024), from the script's NEG start equal
@@ -43,6 +46,11 @@ non-zero:
    preads and 29x raw reads at 3% error (the recipe of
    scripts/e2e_bench.py); per-stage seconds, kernel launches, device ms,
    cell rate, peak device memory and the cns statistics;
+5b. the per-base-quality hotspot polish of
+   tests/test_qv_aware.py::test_polish_per_base_profile_qv on cuda (15 kb,
+   20x reads of 2000 bp at 5% error, arrow_rounds 3), flat and with
+   per-base tiers: Arrow launches (3 expected each) and their device ms;
+   the tiered consensus must equal the truth;
 6. the ablation path: python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
    (each set's time beside the card's name and power limit);
 7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
@@ -341,13 +349,17 @@ def phase_parity_hmm(torch, np) -> dict:
 
 
 def phase_parity_arrow(torch, np) -> dict:
-    """Arrow splice sweep kernel against arrow_splice_plain on the card at
-    the production polish shape (P=512, Lq=LJ=640, C=4)."""
+    """Arrow splice sweep kernel against arrow_sweeps_plain on the card at
+    the production polish shape (P=512, Lq=LJ=640, C=4): the raw sweep
+    outputs and the splice scores built on them; then the edge shapes of
+    scripts/tune_arrow.py (padding pairs, n and m at the stripe edges,
+    n > m, n < m, small m, m = LJ - 1 with clipped slots)."""
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.polisher import (PolisherConfig,
                                                          tier_table)
     from falcon_unzip_tpu_torch.ops import arrow as ar
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
     dev = torch.device("cuda")
     rng = np.random.default_rng(2026)
     pc = PolisherConfig()
@@ -361,20 +373,24 @@ def phase_parity_arrow(torch, np) -> dict:
     pvec = np.tile(ph.params_vector(), (P, 1))
     tiers = tier_table()
     qt = rng.integers(0, len(tiers), size=(P, L + 1)).astype(np.int8)
-    dt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     res = {}
     for mode in ("per-pair", "per-base"):
-        args = [dt(x) for x in (q, t, n, m, cand, pvec)]
-        args += ([dt(qt), dt(tiers)] if mode == "per-base" else [None, None])
-        k_cur, k_mut = ar.arrow_splice(*args, C=C)
+        args = ta.to_device((q, t, n, m, cand, pvec, qt, tiers), mode, dev)
+        k_sw = ar.arrow_sweeps(*args, C=C)
         t0 = time.perf_counter()
-        p_cur, p_mut = ar.arrow_splice_plain(*args, C=C)
-        torch.cuda.synchronize()
-        plain_all_ms = 1e3 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        ar.arrow_sweeps_plain(*args, C=C)
+        p_sw = ar.arrow_sweeps_plain(*args, C=C)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ar.arrow_splice_plain(*args, C=C)
+        torch.cuda.synchronize()
+        plain_all_ms = 1e3 * (time.perf_counter() - t0)
+        raw_rel = max(ta.max_rel_err(a, b) for a, b in zip(k_sw, p_sw))
+        if not raw_rel <= 1e-3:
+            _fail(f"arrow {mode}: raw sweep outputs rel err {raw_rel} over "
+                  "the bar (or NEG slots differ)")
+        k_cur, k_mut = ar.splice_from_sweeps(*args, k_sw, C=C)
+        p_cur, p_mut = ar.splice_from_sweeps(*args, p_sw, C=C)
         k_all = torch.cat([k_cur[:, None], k_mut.reshape(P, -1)], dim=1)
         p_all = torch.cat([p_cur[:, None], p_mut.reshape(P, -1)], dim=1)
         if not torch.equal(k_all <= -1e29, p_all <= -1e29):
@@ -387,11 +403,31 @@ def phase_parity_arrow(torch, np) -> dict:
         all_ms = _time_ms(torch, lambda: ar.arrow_splice(*args, C=C), 5)
         res[mode] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel,
                          work=bench.arrow_work(n, m, Lq=L, LJ=L, C=C))
-        print(f"[3 parity] arrow_splice {mode} P={P} Lq=LJ={L} C={C} | "
-              f"{int(ok.sum())} scores, max abs err {err:.3g} rel {rel:.3g}"
-              f" (bar 1e-3) | sweep kernel {ms:.3f} ms (plain sweeps "
-              f"{plain_ms:.1f} ms) | with splice assembly {all_ms:.3f} ms "
-              f"(plain {plain_all_ms:.1f} ms)", flush=True)
+        print(f"[3 parity] arrow_splice {mode} P={P} Lq=LJ={L} C={C} | raw "
+              f"sweep outputs max rel err {raw_rel:.3g} | {int(ok.sum())} "
+              f"scores, max abs err {err:.3g} rel {rel:.3g} (bar 1e-3) | "
+              f"sweep kernel {ms:.3f} ms (plain sweeps {plain_ms:.1f} ms) | "
+              f"with splice assembly {all_ms:.3f} ms (plain "
+              f"{plain_all_ms:.1f} ms)", flush=True)
+    worst = 0.0
+    for kind in ta.EDGE_KINDS:
+        specs = ta.edge_specs(kind, LJ=L, edges=(31, 32, 33, 63, 64, 65,
+                                                 127, 128, 129))
+        arrays = ta.pack(rng, specs, Lq=L, LJ=L, C=C)
+        for mode in ("per-pair", "per-base"):
+            args = ta.to_device(arrays, mode, dev)
+            k_sw = ar.arrow_sweeps(*args, C=C)
+            p_sw = ar.arrow_sweeps_plain(*args, C=C)
+            rel = max(ta.max_rel_err(a, b) for a, b in zip(
+                k_sw + ar.splice_from_sweeps(*args, k_sw, C=C),
+                p_sw + ar.splice_from_sweeps(*args, p_sw, C=C)))
+            if not rel <= 1e-3:
+                _fail(f"arrow edge shapes {kind} {mode}: rel err {rel} over "
+                      "the bar (or NEG slots differ)")
+            worst = max(worst, rel)
+    print(f"[3 parity] arrow_splice edge shapes {', '.join(ta.EDGE_KINDS)}, "
+          f"both modes, Lq=LJ={L} C={C} | raw outputs and scores max rel "
+          f"err {worst:.3g} (bar 1e-3)", flush=True)
     return res
 
 
@@ -808,6 +844,62 @@ def phase_main(torch, tmp, genome_bp) -> dict:
                          q_launch["arrow_splice"]}}
 
 
+def phase_hotspot(torch, np) -> dict:
+    """The per-base-quality hotspot polish of
+    tests/test_qv_aware.py::test_polish_per_base_profile_qv on the card:
+    flat params, then per-base tiers, each with the counts set to 0 just
+    before it and read just after.  The tiered consensus must equal the
+    truth."""
+    from falcon_unzip_tpu_torch.models.aligner import (AlignerConfig,
+                                                       ReadToContigAligner)
+    from falcon_unzip_tpu_torch.models.polisher import (Polisher,
+                                                         PolisherConfig,
+                                                         phred_to_tiers)
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils.simulate import (Diploid,
+                                                       random_genome,
+                                                       simulate_reads)
+    L = 15000
+    truth = random_genome(L, 97)
+    dip = Diploid(hap0=truth, hap1=truth.copy(),
+                  snp_pos=np.zeros(0, np.int64), snp_alt=np.zeros(0, np.int8))
+    sim = simulate_reads(dip, coverage=20.0, read_len=2000, error_rate=0.05,
+                         seed=98, rc_frac=0.65, qv_profile="hotspot")
+    rng = np.random.default_rng(99)
+    draft = truth.copy()
+    err = rng.choice(L - 200, size=12, replace=False) + 100
+    draft[err] = (draft[err] + 1 + rng.integers(0, 3, 12)) % 4
+    aln = ReadToContigAligner([draft], AlignerConfig(),
+                              device="cuda").align_batch(sim.batch)
+    cfg = PolisherConfig(arrow_rounds=3)
+    tiers = [phred_to_tiers(x) for x in sim.quals]
+    res = {}
+    for mode, qtiers in (("flat", None), ("per-base", tiers)):
+        _kernels.ARROW.timed = True
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        c = Polisher(cfg, read_qtiers=qtiers, device="cuda").polish_contig(
+            "c", draft, aln, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _kernels.ARROW.launches
+        dev_ms = _kernels.ARROW.elapsed_ms()
+        _kernels.ARROW.timed = False
+        seq = np.asarray(c.seq)
+        mism = (int((seq != truth).sum()) if len(seq) == L
+                else f"length {len(seq)}")
+        res[mode] = dict(launches=launches, ms=dev_ms, mismatches=mism)
+        print(f"[5b hotspot] {mode}: polish {wall:.1f} s | {launches} Arrow "
+              f"launches (3 expected), {dev_ms:.3f} ms of device time | "
+              f"consensus vs truth: {mism} mismatches", flush=True)
+    if res["per-base"]["mismatches"] != 0:
+        _fail(f"hotspot polish with per-base tiers differs from the truth: "
+              f"{res['per-base']['mismatches']}")
+    if min(r["launches"] for r in res.values()) <= 0:
+        _fail(f"hotspot polish did not launch the Arrow kernel: {res}")
+    return res
+
+
 def phase_ablate_path() -> dict:
     """The ablation script's entry point with the counts set to 0 just
     before it and read just after."""
@@ -885,6 +977,7 @@ def main(argv=None) -> int:
         main_run = phase_main(torch, tmp, args.genome_bp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    phase_hotspot(torch, np)
     ablate_run = phase_ablate_path()
     phase_bench()
     from falcon_unzip_tpu_torch import bench

@@ -1,43 +1,46 @@
-// Arrow splice forward and backward row sweeps for Hopper (sm_90a).
+// Arrow splice forward and backward sweeps for Hopper (sm_90a).
 //
 // arrow_sweep_kernel replaces the two lax.scan row sweeps of
 // falcon_unzip_tpu/ops/arrow.py::arrow_splice_core (fstep, :154-176, and
 // bstep, :185-210; XLA loops, not Pallas).  For every (read, template)
 // pair it runs the 3-state log-space pair-HMM forward over rows
-// i = 0..Lq and the backward over rows Lq..0, each row spanning the LJ
-// template columns, and writes only what the splice assembly reads:
+// i = 0..min(n, Lq) and the backward from that row down to 0, each over
+// the template columns j = 0..min(m, LJ - 1), and writes only what the
+// splice assembly reads:
 //   forward:  M, I, D at the <= C candidate columns     -> (P, C, R)
 //   backward: BM, BD at the <= 3C columns cand + 0..2   -> (P, 3, C, R)
 //             BM[0, 0], the pair's unmutated log-likelihood
 // (R = Lq + 1).  Masks, logaddexp nesting, NEG = -1e30 and the per-base
-// tier mode follow arrow.py:113-210 exactly: a forward row takes base
-// i-1's tier (qt_m1), a backward row takes base i's tier for its M/I
-// edges and base i-1's for the within-row D edges (tMD, tDD).
-// logaddexp is max + log1p(exp(-|a - b|)), so NEG + NEG stays NEG.
+// tier mode follow arrow.py:113-210: a forward row takes base i-1's tier
+// (qt_m1), a backward row takes base i's tier for its M/I edges and base
+// i-1's for the within-row D edges (tMD, tDD).  Rows past n and columns
+// past m are NEG in the reference; the kernel writes NEG there without
+// computing them.  A candidate column is clipped into [0, LJ) first and
+// then read, as the reference's gather does.
 //
 //   Layout: grid (P, 2); block (p, 0) runs the forward sweep of pair p and
 //   block (p, 1) its backward sweep, so a pair's score depends on no other
-//   pair of the batch.  The block's 128 threads split the row into
-//   contiguous chunks of cpt = ceil(LJ / 128) columns.  Rows live in
-//   shared memory, double-buffered (row i reads row i-1 / i+1); the read,
-//   template and tier ids are staged there as int8, and the (T, 10) tier
-//   table (or the pair's 10 params) as floats.
+//   pair of the batch.  The block's NW warps take a stripe of 32 NW
+//   consecutive rows, a lane a row, and walk it by antidiagonals: at step
+//   s the lane of stripe row r computes column s - r (backward: mc - s +
+//   r).  So the in-row recurrence (D from column j-1, or BD from j+1) is
+//   the lane's own register chain, and the previous row comes from the
+//   lane above by shuffle: its newest values (column j) and the ones it
+//   passed down one step earlier (column j -+ 1).  Across warps the edge is
+//   one shared-memory word a warp and step, double-buffered by step parity,
+//   with one barrier a step (none at NW = 1); across stripes the stripe's
+//   last row goes through a shared-memory row, double-buffered by stripe
+//   parity.  Each lane keeps its row's read base and its ten params in
+//   registers; the template base and a bit mask of the output slots that
+//   read the column come from shared memory, one word each a step.
 //
-//   The within-row D recurrence D[j] = lae(u[j], D[j-1] + tDD) (backward:
-//   from j+1) is a linear scan in the log semiring with a constant decay
-//   per row.  It replaces the Hillis-Steele ladder of _scan_lse_right /
-//   _scan_lse_left (arrow.py:60-81): each thread scans its chunk
-//   sequentially, the chunk totals are scanned across the warp with
-//   shuffles (decay cpt * tDD per lane), the four warp totals are
-//   combined through shared memory, and each thread folds the carry into
-//   its chunk.  Rows past the read's end (i > n) are NEG in the reference;
-//   the kernel writes NEG there without computing them.
+//   The logaddexp is max + log1p(exp(-|a - b|)) in full precision, nested
+//   as the reference nests it, so NEG + NEG stays NEG.
 //
-//   What bounds it: the rows are a dependent chain (two or three block
-//   barriers per row), so a block is latency-bound; throughput comes from
-//   2P blocks in flight (P = 512 at production: 1024 blocks on 132 SMs).
-//   The DP never leaves shared memory; device-memory traffic is the
-//   inputs once and 3C + 6C floats per row.
+//   What bounds it: every cell is a dependent chain of a shuffle and one
+//   or two logaddexps, and the logaddexps' expf and log1pf run on the FMA
+//   pipe (about four a cell).  Device-memory traffic is the inputs once
+//   and 3C + 6C floats a row.
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -48,65 +51,51 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPad = 4;  // seq.PAD: never matches
+constexpr int kPad = 4;          // seq.PAD: never matches
+constexpr int kMaxWarps = 4;     // the edge buffer's size
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// logaddexp of two and of three terms.  kFast: base 2 on the SFU (the
+// values are in log2 units), the three-term sum as max + lg2(1 + ex2 + ex2)
+// of the other two; else natural log, nested as the reference nests it.
+template <bool kFast>
 __device__ __forceinline__ float lae(float a, float b) {
+  if (kFast) return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
 }
 
-// In-place inclusive log-semiring scan of the shared row x[0, LJ) with the
-// constant decay c: x[j] = lae(u[j], x[j-1] + c), or from x[j+1] when
-// kRev.  Thread t owns [t*cpt, t*cpt + cpt) clipped to LJ.  Afterwards
-// columns outside [keep_lo, keep_hi] are set to NEG.  Ends with a block
-// barrier.
-template <bool kRev>
-__device__ void block_scan(float* x, int LJ, int cpt, float c, int keep_lo,
-                           int keep_hi, float* wtot) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  // positions in scan order
-  const int lp = kRev ? 31 - lane : lane;
-  const int wp = kRev ? kWarps - 1 - warp : warp;
-  const int j0 = tid * cpt;
-  float s = kNeg;
-  for (int k = 0; k < cpt; ++k) {
-    const int j = kRev ? j0 + cpt - 1 - k : j0 + k;
-    if (j < LJ) {
-      s = lae(x[j], s + c);
-      x[j] = s;
-    }
+template <bool kFast>
+__device__ __forceinline__ float lae3(float a, float b, float c) {
+  if (kFast) {
+    const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
+    const float hi = fmaxf(hi_ab, c);
+    const float lo = fminf(lo_ab, c);
+    const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
+    return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
   }
-  // chunk totals: inclusive scan over the warp, decay dc per chunk
-  const float dc = static_cast<float>(cpt) * c;
-  float X = s;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = kRev ? __shfl_down_sync(kFull, X, off)
-                         : __shfl_up_sync(kFull, X, off);
-    if (lp >= off) X = lae(X, y + static_cast<float>(off) * dc);
-  }
-  const float Xprev = kRev ? __shfl_down_sync(kFull, X, 1)
-                           : __shfl_up_sync(kFull, X, 1);
-  if (lp == 31) wtot[wp] = X;
-  __syncthreads();
-  float carry = kNeg;  // inclusive value at the end of the previous warp
-  for (int w = 0; w < wp; ++w) carry = lae(wtot[w], carry + 32.0f * dc);
-  // inclusive value at the end of the previous chunk
-  const float E = lp == 0 ? carry
-                          : lae(Xprev, carry + static_cast<float>(lp) * dc);
-  for (int k = 0; k < cpt; ++k) {
-    const int j = j0 + k;
-    if (j >= LJ) break;
-    const float dist = kRev ? static_cast<float>(cpt - k)
-                            : static_cast<float>(k + 1);
-    const float v = lae(x[j], E + dist * c);
-    x[j] = (j >= keep_lo && j <= keep_hi) ? v : kNeg;
-  }
-  __syncthreads();
+  return lae<false>(lae<false>(a, b), c);
+}
+
+// An output value in natural-log units; kFast values are in log2 units,
+// and NEG stays NEG.
+template <bool kFast>
+__device__ __forceinline__ float to_ln(float v) {
+  if (!kFast) return v;
+  return v < -1e29f ? kNeg : v * kLn2;
 }
 
 __device__ __forceinline__ const float* tier_row(const float* tp,
@@ -118,160 +107,208 @@ __device__ __forceinline__ const float* tier_row(const float* tp,
   return tp + 10 * k;
 }
 
-__device__ void forward_sweep(float* rows, float* wtot, const float* tp,
-                              const int8_t* sq, const int8_t* st,
-                              const int8_t* sqt, int T, int n, int m,
-                              int Lq, int LJ, int C, const int32_t* cand,
-                              float* afM, float* afI, float* afD, int p) {
-  const int tid = threadIdx.x;
-  const int cpt = (LJ + kThreads - 1) / kThreads;
-  const int j0 = tid * cpt;
-  const int j1 = min(j0 + cpt, LJ);
+struct Shared {
+  const float* tp;     // tier table or the pair's params (log2 if kFast)
+  float* rows;         // 2 x 3 stripe-edge rows of LJ floats
+  float* edge;         // 2 x kMaxWarps x 3 cross-warp words
+  const unsigned* slots;  // per column: the output slots that read it
+  const int8_t* sq;
+  const int8_t* st;
+  const int8_t* sqt;   // tier ids (R), or nullptr
+};
+
+template <int NW, bool kFast>
+__device__ void forward_sweep(const Shared& sh, int T, int n, int m, int Lq,
+                              int LJ, int C, float* afM, float* afI,
+                              float* afD, int p) {
+  constexpr int kRows = 32 * NW;
+  const int r = threadIdx.x;
+  const int lane = r & 31;
+  const int warp = r >> 5;
   const int R = Lq + 1;
-  float* Mp = rows;
-  float* Ip = rows + LJ;
-  float* Dp = rows + 2 * LJ;
-  float* Mc = rows + 3 * LJ;
-  float* Ic = rows + 4 * LJ;
-  float* Dc = rows + 5 * LJ;
-  for (int j = tid; j < LJ; j += kThreads) Mp[j] = Ip[j] = Dp[j] = kNeg;
-  const int my_c = tid < C ? tid : -1;
-  int col = 0;
-  if (my_c >= 0) {
-    col = cand[static_cast<size_t>(p) * C + my_c];
-    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
-  }
+  const int i_end = min(n, Lq);   // rows past n are NEG
+  const int mc = min(m, LJ - 1);  // columns past m are NEG
+  float* rin = sh.rows;           // the row above the stripe: M, I, D
+  float* rout = sh.rows + 3 * LJ;
+  for (int j = r; j <= mc; j += kRows)
+    rin[j] = rin[LJ + j] = rin[2 * LJ + j] = kNeg;
   __syncthreads();
-  const int i_end = min(n, Lq);  // rows past n are NEG
-  for (int i = 0; i <= i_end; ++i) {
+  for (int i0 = 0; i0 <= i_end; i0 += kRows) {
+    const int i = i0 + r;
+    const bool live = i <= i_end;
     // every edge into row i consumes q[i-1]: base i-1's tier (clip 0)
-    const float* pr = tier_row(tp, sqt, i == 0 ? 0 : i - 1, T);
+    const float* pr = tier_row(sh.tp, sh.sqt, live && i >= 1 ? i - 1 : 0, T);
     const float em_match = pr[0], em_mis = pr[1], em_ins = pr[2];
     const float tMM = pr[3], tMI = pr[4], tMD = pr[5];
     const float tIM = pr[6], tII = pr[7], tDM = pr[8], tDD = pr[9];
-    const int qc = i >= 1 ? sq[i - 1] : kPad;
-    for (int j = j0; j < j1; ++j) {
-      const int tg = j >= 1 ? st[j - 1] : kPad;
-      const float em = (qc == tg && qc < 4) ? em_match : em_mis;
-      const float Md = j >= 1 ? Mp[j - 1] : kNeg;
-      const float Id = j >= 1 ? Ip[j - 1] : kNeg;
-      const float Dd = j >= 1 ? Dp[j - 1] : kNeg;
-      const bool jm = j <= m;
-      float M = em + lae(lae(Md + tMM, Id + tIM), Dd + tDM);
-      M = (i >= 1 && j >= 1 && jm) ? M : kNeg;
-      if (i == 0 && j == 0) M = 0.0f;
-      float I = em_ins + lae(Mp[j] + tMI, Ip[j] + tII);
-      I = (i >= 1 && jm) ? I : kNeg;
-      Mc[j] = M;
-      Ic[j] = I;
+    const int qc = live && i >= 1 ? sh.sq[i - 1] : kPad;
+    // own values at column j-1; the row above at column j-1
+    float Mc = kNeg, Ic = kNeg, Dc = kNeg;
+    float dM = kNeg, dI = kNeg, dD = kNeg;
+    const int steps = mc + min(kRows, i_end - i0 + 1);
+    for (int s = 0; s < steps; ++s) {
+      const int j = s - r;
+      // the row above at column j: the lane above's newest values
+      float uM = __shfl_up_sync(kFull, Mc, 1);
+      float uI = __shfl_up_sync(kFull, Ic, 1);
+      float uD = __shfl_up_sync(kFull, Dc, 1);
+      if (lane == 0) {
+        const bool in = j >= 0 && j <= mc;
+        if (warp == 0) {
+          uM = in ? rin[j] : kNeg;
+          uI = in ? rin[LJ + j] : kNeg;
+          uD = in ? rin[2 * LJ + j] : kNeg;
+        } else {
+          const float* e = sh.edge + ((s - 1) & 1) * 3 * kMaxWarps +
+                           3 * (warp - 1);
+          uM = in ? e[0] : kNeg;
+          uI = in ? e[1] : kNeg;
+          uD = in ? e[2] : kNeg;
+        }
+      }
+      if (live && j >= 0 && j <= mc) {
+        const int tg = j >= 1 ? sh.st[j - 1] : kPad;
+        const float em = (qc == tg && qc < 4) ? em_match : em_mis;
+        float M = kNeg;
+        if (i >= 1 && j >= 1)
+          M = em + lae3<kFast>(dM + tMM, dI + tIM, dD + tDM);
+        else if (i == 0 && j == 0)
+          M = 0.0f;
+        const float I =
+            i >= 1 ? em_ins + lae<kFast>(uM + tMI, uI + tII) : kNeg;
+        const float D = j >= 1 ? lae<kFast>(Mc + tMD, Dc + tDD) : kNeg;
+        Mc = M;
+        Ic = I;
+        Dc = D;
+        for (unsigned mk = sh.slots[j]; mk != 0; mk &= mk - 1) {
+          const int c = __ffs(mk) - 1;
+          const size_t o = (static_cast<size_t>(p) * C + c) * R + i;
+          afM[o] = to_ln<kFast>(M);
+          afI[o] = to_ln<kFast>(I);
+          afD[o] = to_ln<kFast>(D);
+        }
+        if (r == kRows - 1) {
+          rout[j] = M;
+          rout[LJ + j] = I;
+          rout[2 * LJ + j] = D;
+        }
+      }
+      dM = uM;
+      dI = uI;
+      dD = uD;
+      if (NW > 1) {
+        if (lane == 31) {
+          float* e = sh.edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
+          e[0] = Mc;
+          e[1] = Ic;
+          e[2] = Dc;
+        }
+        __syncthreads();
+      }
     }
+    float* x = rin;
+    rin = rout;
+    rout = x;
     __syncthreads();
-    for (int j = j0; j < j1; ++j)
-      Dc[j] = (j >= 1 && j <= m) ? Mc[j - 1] + tMD : kNeg;
-    block_scan<false>(Dc, LJ, cpt, tDD, 1, m, wtot);
-    if (my_c >= 0) {
-      const size_t o = (static_cast<size_t>(p) * C + my_c) * R + i;
-      afM[o] = Mc[col];
-      afI[o] = Ic[col];
-      afD[o] = Dc[col];
-    }
-    float* x;
-    x = Mp; Mp = Mc; Mc = x;
-    x = Ip; Ip = Ic; Ic = x;
-    x = Dp; Dp = Dc; Dc = x;
-  }
-  const int rest = R - 1 - i_end;
-  for (int k = tid; k < C * rest; k += kThreads) {
-    const size_t o = (static_cast<size_t>(p) * C + k / rest) * R +
-                     (i_end + 1 + k % rest);
-    afM[o] = afI[o] = afD[o] = kNeg;
   }
 }
 
-__device__ void backward_sweep(float* rows, float* wtot, const float* tp,
-                               const int8_t* sq, const int8_t* st,
-                               const int8_t* sqt, int T, int n, int m,
-                               int Lq, int LJ, int C, const int32_t* cand,
-                               float* bM, float* bD, float* ll_cur, int p) {
-  const int tid = threadIdx.x;
-  const int cpt = (LJ + kThreads - 1) / kThreads;
-  const int j0 = tid * cpt;
-  const int j1 = min(j0 + cpt, LJ);
+template <int NW, bool kFast>
+__device__ void backward_sweep(const Shared& sh, int T, int n, int m,
+                               int Lq, int LJ, int C, float* bM, float* bD,
+                               float* ll_cur, int p) {
+  constexpr int kRows = 32 * NW;
+  const int r = threadIdx.x;
+  const int lane = r & 31;
+  const int warp = r >> 5;
   const int R = Lq + 1;
-  float* BMp = rows;
-  float* BIp = rows + LJ;
-  float* BMc = rows + 2 * LJ;
-  float* BIc = rows + 3 * LJ;
-  float* BDc = rows + 4 * LJ;
-  float* BDo = rows + 5 * LJ;
-  float* GM = rows + 6 * LJ;
-  float* GI = rows + 7 * LJ;
-  for (int j = tid; j < LJ; j += kThreads) BMp[j] = BIp[j] = kNeg;
-  // writer threads: slot (s, c) reads column clip(cand[c] + s)
-  const int my_sc = tid < 3 * C ? tid : -1;
-  int col = 0;
-  if (my_sc >= 0) {
-    col = cand[static_cast<size_t>(p) * C + my_sc % C] + my_sc / C;
-    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
-  }
   const int i_start = min(n, Lq);  // rows past n are NEG
-  const int rest = R - 1 - i_start;
-  for (int k = tid; k < 3 * C * rest; k += kThreads) {
-    const size_t o = (static_cast<size_t>(p) * 3 * C + k / rest) * R +
-                     (i_start + 1 + k % rest);
-    bM[o] = bD[o] = kNeg;
-  }
+  const int mc = min(m, LJ - 1);   // columns past m are NEG
+  float* rin = sh.rows;            // the row below the stripe: BM, BI
+  float* rout = sh.rows + 3 * LJ;
+  for (int j = r; j <= mc; j += kRows) rin[j] = rin[LJ + j] = kNeg;
   __syncthreads();
-  for (int i = i_start; i >= 0; --i) {
-    // M/I edges out of row i consume q[i]; the within-row D edges
-    // (tMD, tDD) stay on base i-1, mirroring the forward
-    const float* pb = tier_row(tp, sqt, i, T);
-    const float* pf = tier_row(tp, sqt, i == 0 ? 0 : i - 1, T);
+  for (int i0 = i_start; i0 >= 0; i0 -= kRows) {
+    const int i = i0 - r;
+    const bool live = i >= 0;
+    // M/I edges out of row i consume q[i]; the within-row D edges (tMD,
+    // tDD) stay on base i-1, mirroring the forward
+    const float* pb = tier_row(sh.tp, sh.sqt, live ? i : 0, T);
+    const float* pf = tier_row(sh.tp, sh.sqt, live && i >= 1 ? i - 1 : 0, T);
     const float em_match = pb[0], em_mis = pb[1], em_ins = pb[2];
     const float tMM = pb[3], tMI = pb[4], tIM = pb[6], tII = pb[7];
     const float tDM = pb[8];
     const float tMD = pf[5], tDD = pf[9];
-    const int qc = i < Lq ? sq[i] : kPad;
-    const bool rin = i <= n - 1;
-    for (int j = j0; j < j1; ++j) {
-      const float emB = (qc == st[j] && qc < 4) ? em_match : em_mis;
-      float gm = emB + (j + 1 < LJ ? BMp[j + 1] : kNeg);
-      gm = (rin && j <= m - 1) ? gm : kNeg;
-      float gi = em_ins + BIp[j];
-      gi = (rin && j <= m) ? gi : kNeg;
-      const float term = (i == n && j == m) ? 0.0f : kNeg;
-      GM[j] = gm;
-      GI[j] = gi;
-      BDc[j] = lae(tDM + gm, term);
+    const int qc = live && i < Lq ? sh.sq[i] : kPad;
+    const bool rin_q = i <= n - 1;   // row i still consumes a read base
+    // own values at column j+1; the row below at column j+1
+    float BMc = kNeg, BIc = kNeg, BDc = kNeg;
+    float dBM = kNeg;
+    const int steps = mc + min(kRows, i0 + 1);
+    for (int s = 0; s < steps; ++s) {
+      const int j = mc - s + r;
+      // the row below at column j: the lane above's newest values
+      float uBM = __shfl_up_sync(kFull, BMc, 1);
+      float uBI = __shfl_up_sync(kFull, BIc, 1);
+      if (lane == 0) {
+        const bool in = j >= 0 && j <= mc;
+        if (warp == 0) {
+          uBM = in ? rin[j] : kNeg;
+          uBI = in ? rin[LJ + j] : kNeg;
+        } else {
+          const float* e = sh.edge + ((s - 1) & 1) * 3 * kMaxWarps +
+                           3 * (warp - 1);
+          uBM = in ? e[0] : kNeg;
+          uBI = in ? e[1] : kNeg;
+        }
+      }
+      if (live && j >= 0 && j <= mc) {
+        float BM, BI, BD;
+        if (i == n && j == m) {  // the terminal cell
+          BM = BI = BD = 0.0f;
+        } else {
+          const float emB =
+              (qc == sh.st[j] && qc < 4) ? em_match : em_mis;
+          const float go_m = rin_q && j <= m - 1 ? emB + dBM : kNeg;
+          const float go_i = rin_q ? em_ins + uBI : kNeg;
+          BD = lae<kFast>(tDM + go_m, BDc + tDD);
+          BM = lae3<kFast>(tMM + go_m, tMI + go_i, tMD + BDc);
+          BI = lae<kFast>(tIM + go_m, tII + go_i);
+        }
+        BMc = BM;
+        BIc = BI;
+        BDc = BD;
+        for (unsigned mk = sh.slots[j]; mk != 0; mk &= mk - 1) {
+          const int sc = __ffs(mk) - 1;
+          const size_t o = (static_cast<size_t>(p) * 3 * C + sc) * R + i;
+          bM[o] = to_ln<kFast>(BM);
+          bD[o] = to_ln<kFast>(BD);
+        }
+        if (i == 0 && j == 0) ll_cur[p] = to_ln<kFast>(BM);
+        if (r == kRows - 1) {
+          rout[j] = BM;
+          rout[LJ + j] = BI;
+        }
+      }
+      dBM = uBM;
+      if (NW > 1) {
+        if (lane == 31) {
+          float* e = sh.edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
+          e[0] = BMc;
+          e[1] = BIc;
+        }
+        __syncthreads();
+      }
     }
-    block_scan<true>(BDc, LJ, cpt, tDD, 0, m, wtot);
-    for (int j = j0; j < j1; ++j) {
-      const float gm = GM[j];
-      const float gi = GI[j];
-      const float term = (i == n && j == m) ? 0.0f : kNeg;
-      const float bdn = j + 1 < LJ ? BDc[j + 1] : kNeg;
-      const float BM =
-          lae(lae(lae(tMM + gm, tMI + gi), tMD + bdn), term);
-      const float BI = lae(lae(tIM + gm, tII + gi), term);
-      const bool jm = j <= m;
-      BMc[j] = jm ? BM : kNeg;
-      BIc[j] = jm ? BI : kNeg;
-    }
+    float* x = rin;
+    rin = rout;
+    rout = x;
     __syncthreads();
-    if (my_sc >= 0) {
-      const size_t o = (static_cast<size_t>(p) * 3 * C + my_sc) * R + i;
-      bM[o] = BMc[col];
-      bD[o] = BDc[col];
-    }
-    if (i == 0 && tid == 0) ll_cur[p] = BMc[0];
-    float* x;
-    x = BMp; BMp = BMc; BMc = x;
-    x = BIp; BIp = BIc; BIc = x;
-    x = BDo; BDo = BDc; BDc = x;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int NW, bool kFast>
+__global__ void __launch_bounds__(32 * NW)
 arrow_sweep_kernel(const int8_t* __restrict__ q,
                    const int8_t* __restrict__ t,
                    const int32_t* __restrict__ n_arr,
@@ -284,60 +321,91 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
                    float* __restrict__ afD, float* __restrict__ bM,
                    float* __restrict__ bD, float* __restrict__ ll_cur) {
   extern __shared__ float smem[];
+  constexpr int kThreads = 32 * NW;
   const int p = blockIdx.x;
+  const bool fwd = blockIdx.y == 0;
   const int tid = threadIdx.x;
   const int R = Lq + 1;
   const bool tiered = qt != nullptr;
   const int np = tiered ? 10 * T : 10;
-  float* rows = smem;                 // 8 rows of LJ floats
-  float* wtot = rows + 8 * LJ;        // kWarps warp totals
-  float* tp = wtot + kWarps;          // tier table or the pair's params
-  int8_t* sq = reinterpret_cast<int8_t*>(tp + np);
+  float* tp = smem;                                  // np floats
+  float* rows = tp + np;                             // 6 LJ floats
+  float* edge = rows + 6 * LJ;                       // 6 kMaxWarps floats
+  unsigned* slots = reinterpret_cast<unsigned*>(edge + 6 * kMaxWarps);
+  int8_t* sq = reinterpret_cast<int8_t*>(slots + LJ);
   int8_t* st = sq + Lq;
   int8_t* sqt = tiered ? st + LJ : nullptr;
+  const float scale = kFast ? kLog2e : 1.0f;
   for (int k = tid; k < np; k += kThreads)
-    tp[k] = tiered ? tiers[k] : pvec[static_cast<size_t>(p) * 10 + k];
+    tp[k] = scale * (tiered ? tiers[k] : pvec[static_cast<size_t>(p) * 10 + k]);
   for (int k = tid; k < Lq; k += kThreads)
     sq[k] = q[static_cast<size_t>(p) * Lq + k];
-  for (int k = tid; k < LJ; k += kThreads)
+  for (int k = tid; k < LJ; k += kThreads) {
     st[k] = t[static_cast<size_t>(p) * LJ + k];
+    slots[k] = 0u;
+  }
   if (tiered)
     for (int k = tid; k < R; k += kThreads)
       sqt[k] = qt[static_cast<size_t>(p) * R + k];
-  __syncthreads();
   const int n = n_arr[p];
   const int m = m_arr[p];
-  if (blockIdx.y == 0)
-    forward_sweep(rows, wtot, tp, sq, st, sqt, T, n, m, Lq, LJ, C, cand,
-                  afM, afI, afD, p);
+  const int i_last = min(n, Lq);
+  const int mc = min(m, LJ - 1);
+  __syncthreads();
+  // output slots: forward slot c reads column clip(cand[c]); backward slot
+  // (s, c) reads clip(cand[c] + s).  A slot whose column is past m, and
+  // every slot's rows past n, are NEG.
+  const int n_slots = fwd ? C : 3 * C;
+  for (int sc = tid; sc < n_slots; sc += kThreads) {
+    int col = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
+    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
+    if (col <= mc) atomicOr(&slots[col], 1u << sc);
+  }
+  for (int k = tid; k < n_slots * R; k += kThreads) {
+    const int sc = k / R;
+    const int i = k % R;
+    int col = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
+    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
+    if (i <= i_last && col <= mc) continue;
+    const size_t o = static_cast<size_t>(p) * n_slots * R + k;
+    if (fwd) {
+      afM[o] = afI[o] = afD[o] = kNeg;
+    } else {
+      bM[o] = bD[o] = kNeg;
+    }
+  }
+  __syncthreads();
+  const Shared sh{tp, rows, edge, slots, sq, st, sqt};
+  if (fwd)
+    forward_sweep<NW, kFast>(sh, T, n, m, Lq, LJ, C, afM, afI, afD, p);
   else
-    backward_sweep(rows, wtot, tp, sq, st, sqt, T, n, m, Lq, LJ, C, cand,
-                   bM, bD, ll_cur, p);
+    backward_sweep<NW, kFast>(sh, T, n, m, Lq, LJ, C, bM, bD, ll_cur, p);
 }
 
-}  // namespace
+// the variant a launch takes (warps a block, base-2 SFU logaddexp)
+int g_nw = 1;
+int g_fast = 0;
 
-extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
-                               const void* m, const void* cand,
-                               const void* pvec, const void* qt,
-                               const void* tiers, int T, int P, int Lq,
-                               int LJ, int C, void* afM, void* afI,
-                               void* afD, void* bM, void* bD, void* ll_cur,
-                               void* stream) {
+template <int NW, bool kFast>
+int launch(const void* q, const void* t, const void* n, const void* m,
+           const void* cand, const void* pvec, const void* qt,
+           const void* tiers, int T, int P, int Lq, int LJ, int C,
+           void* afM, void* afI, void* afD, void* bM, void* bD,
+           void* ll_cur, void* stream) {
   const int np = qt != nullptr ? 10 * T : 10;
-  const size_t smem = (8 * static_cast<size_t>(LJ) + kWarps + np) *
-                          sizeof(float) +
-                      static_cast<size_t>(Lq) + LJ +
-                      (qt != nullptr ? Lq + 1 : 0);
+  const size_t smem =
+      (static_cast<size_t>(np) + 6 * static_cast<size_t>(LJ) +
+       6 * kMaxWarps + LJ) * sizeof(float) +
+      static_cast<size_t>(Lq) + LJ + (qt != nullptr ? Lq + 1 : 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        arrow_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        arrow_sweep_kernel<NW, kFast>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(P, 2);
-  arrow_sweep_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  arrow_sweep_kernel<NW, kFast><<<grid, 32 * NW, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(t),
       static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
       static_cast<const int32_t*>(cand), static_cast<const float*>(pvec),
@@ -346,4 +414,36 @@ extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
       static_cast<float*>(afD), static_cast<float*>(bM),
       static_cast<float*>(bD), static_cast<float*>(ll_cur));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Selects the variant of the next launches: nw warps a block (1, 2, 4),
+// fast 1 for the base-2 SFU logaddexp.  Returns 0, or 1 if not built.
+extern "C" int fu_arrow_set_variant(int nw, int fast) {
+  if ((nw != 1 && nw != 2 && nw != 4) || (fast != 0 && fast != 1)) return 1;
+  g_nw = nw;
+  g_fast = fast;
+  return 0;
+}
+
+extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
+                               const void* m, const void* cand,
+                               const void* pvec, const void* qt,
+                               const void* tiers, int T, int P, int Lq,
+                               int LJ, int C, void* afM, void* afI,
+                               void* afD, void* bM, void* bD, void* ll_cur,
+                               void* stream) {
+#define FU_ARROW_LAUNCH(NW, F)                                              \
+  launch<NW, F>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C, afM,    \
+                afI, afD, bM, bD, ll_cur, stream)
+  if (g_fast) {
+    if (g_nw == 4) return FU_ARROW_LAUNCH(4, true);
+    if (g_nw == 2) return FU_ARROW_LAUNCH(2, true);
+    return FU_ARROW_LAUNCH(1, true);
+  }
+  if (g_nw == 4) return FU_ARROW_LAUNCH(4, false);
+  if (g_nw == 2) return FU_ARROW_LAUNCH(2, false);
+  return FU_ARROW_LAUNCH(1, false);
+#undef FU_ARROW_LAUNCH
 }

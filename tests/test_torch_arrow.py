@@ -20,6 +20,7 @@ from falcon_unzip_tpu.seq import PAD
 from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import arrow as port_arrow
+from falcon_unzip_tpu_torch.scripts import tune_arrow
 
 # one intra-op thread: the suite runs several pytest workers on one host,
 # and a torch CPU thread pool in each would oversubscribe the cores
@@ -175,3 +176,67 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         _kernels.arrow_sweeps(z, z, i32, i32,
                               torch.zeros((2, 1), dtype=torch.int32),
                               torch.zeros((2, 10)), None, None, C=1)
+
+
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+@pytest.mark.parametrize("kind", tune_arrow.EDGE_KINDS)
+def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
+    """The raw sweep outputs of ``arrow_sweeps_plain`` (the card kernel's
+    yardstick) against the reference oracle's full matrices
+    (``forward_backward_full`` / ``_pb``) at the edge shapes of the card's
+    tests, scaled to LJ = Lq = 72 with 32-row stripes standing in for the
+    kernel's (n, m in 31..33 and 63..65): padding pairs, n > m, n < m,
+    m much smaller than LJ, m = LJ - 1 with clipped slots.
+
+    Conventions: afM/afI/afD[p, c, i] is A_S[i, col] and bM/bD[p, s, c, i]
+    is B_S[i, col + s] with no row offset (the splice assembly shifts the
+    backward by one row itself), the column clipped into [0, LJ) first and
+    NEG past m; rows past n are NEG; ll_cur is B_M[0, 0].  Per-base: the
+    oracle clips a read base's index into [0, n - 1] where the sweeps read
+    the tier track at i = n too; row n's M/I edges consume no read base, so
+    the two agree (for n = 0 the oracle is given base 0's row)."""
+    LJ, C = 72, 4
+    rng = np.random.default_rng(EDGE_SEED[kind])
+    specs = tune_arrow.edge_specs(kind, LJ=LJ, edges=(31, 32, 33, 63, 64, 65))
+    arrays = tune_arrow.pack(rng, specs, Lq=LJ, LJ=LJ, C=C)
+    q, t, n, m, cand, pvec, qt, tiers = arrays
+    got = port_arrow.arrow_sweeps_plain(
+        *tune_arrow.to_device(arrays, mode, "cpu"), C=C)
+    afM, afI, afD, bM, bD, ll_cur = (x.numpy() for x in got)
+    R = LJ + 1
+    for p, (nk, mk, _) in enumerate(specs):
+        qk, tk = q[p, :nk], t[p, :mk]
+        if mode == "per-base":
+            pb = tiers[np.clip(qt[p, : max(nk, 1)], 0, len(tiers) - 1)]
+            fb = oh.forward_backward_full_pb(qk, tk, pb)
+        else:
+            fb = oh.forward_backward_full(qk, tk, _params_of(pvec[p]))
+        (A_M, A_I, A_D), (B_M, _B_I, B_D) = fb
+
+        def at(mat, col):
+            out = np.full(R, NEG_F, np.float32)
+            if col <= mk:
+                out[: nk + 1] = mat[:, col]
+            return out
+
+        for c in range(C):
+            col = int(np.clip(cand[p, c], 0, LJ - 1))
+            for mat, o in ((A_M, afM), (A_I, afI), (A_D, afD)):
+                _close(o[p, c], at(mat, col))
+            for s in range(3):
+                colb = int(np.clip(cand[p, c] + s, 0, LJ - 1))
+                _close(bM[p, s, c], at(B_M, colb))
+                _close(bD[p, s, c], at(B_D, colb))
+        _close(ll_cur[p], B_M[0, 0])
+
+
+EDGE_SEED = {k: 700 + i for i, k in enumerate(tune_arrow.EDGE_KINDS)}
+NEG_F = np.float32(-1e30)
+
+
+def _params_of(pv):
+    """HMMParams whose logs() are the ten log-params pv (float32 exact)."""
+    class _P:
+        def logs(self):
+            return {k: np.float32(pv[i]) for k, i in oh._K.items()}
+    return _P()

@@ -2,8 +2,9 @@
 
 The banded wavefront, its traceback (the moves and the fused packed and
 summary epilogues) and the pair-HMM step ablation must be bit-exact; the
-float kernels (pair-HMM forward, Arrow splice sweeps) within
-``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal.
+float kernels (pair-HMM forward, Arrow splice sweeps: their raw outputs
+and the splice scores) within ``|kernel - plain| <= 1e-3 * max(1,
+|plain|)`` with NEG slots equal.
 
 Marked ``gpu``: these need an NVIDIA GPU and nvcc and skip elsewhere.
 Run them on a GPU machine with
@@ -278,6 +279,26 @@ def test_pairhmm_kernel_matches_plain_on_card(cuda, W):
     assert _kernels.PAIRHMM.launches == 1
 
 
+def _arrow_matches_plain(args, C):
+    """The sweep kernel's raw outputs (afM, afI, afD, bM, bD, ll_cur) and
+    the splice scores built on them equal the plain versions within the
+    float bar, NEG slots equal; one launch."""
+    from falcon_unzip_tpu_torch.ops import arrow as ar
+    _kernels.reset_counts()
+    k_sw = _kernels.arrow_sweeps(*args, C=C)
+    assert _kernels.ARROW.launches == 1
+    p_sw = ar.arrow_sweeps_plain(*args, C=C)
+    torch.cuda.synchronize()
+    for name, k, p in zip(("afM", "afI", "afD", "bM", "bD", "ll_cur"),
+                          k_sw, p_sw):
+        assert k.shape == p.shape, name
+        _close(k, p)
+    k_cur, k_mut = ar.splice_from_sweeps(*args, k_sw, C=C)
+    p_cur, p_mut = ar.splice_from_sweeps(*args, p_sw, C=C)
+    _close(k_cur, p_cur)
+    _close(k_mut, p_mut)
+
+
 @pytest.mark.parametrize("mode", ["per-pair", "per-base"])
 @pytest.mark.parametrize("LJ", [128, 640])
 def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
@@ -306,6 +327,7 @@ def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
     dt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
     args = [dt(x) for x in (q, t, n, m, cand, pvec)]
     args += [dt(qt), dt(tiers)] if mode == "per-base" else [None, None]
+    _arrow_matches_plain(args, C)
     _kernels.reset_counts()
     k_cur, k_mut = ar.arrow_splice(*args, C=C)
     p_cur, p_mut = ar.arrow_splice_plain(*args, C=C)
@@ -313,6 +335,36 @@ def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
     _close(k_cur, p_cur)
     _close(k_mut, p_mut)
     assert _kernels.ARROW.launches == 1
+
+
+_ARROW_EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+
+
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+@pytest.mark.parametrize("kind", ["padding", "stripe_edges", "n_gt_m",
+                                  "n_lt_m", "m_small", "m_full"])
+def test_arrow_kernel_edge_shapes_on_card(cuda, kind, mode):
+    """Lq = LJ = 640, C = 4: padding pairs (n = 0, m = 0), n and m at the
+    stripe edges of 1, 2 and 4 warps (31..33, 63..65, 127..129), n > m,
+    n < m, m much smaller than LJ, and m = LJ - 1 with cand = m - 1 and
+    m - 2 (the slots that clip to column m)."""
+    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
+    rng = np.random.default_rng(len(kind) * 31 + len(mode))
+    specs = ta.edge_specs(kind, LJ=640, edges=_ARROW_EDGES)
+    arrays = ta.pack(rng, specs, Lq=640, LJ=640, C=4)
+    _arrow_matches_plain(ta.to_device(arrays, mode, cuda), 4)
+
+
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+@pytest.mark.parametrize("P", [1, 16, 512])
+def test_arrow_kernel_batch_sizes_on_card(cuda, P, mode):
+    """The polish's launch sizes at its pinned shape (Lq = LJ = 640,
+    C = 4, lengths 300-420), the last eighth of a batch padding pairs."""
+    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
+    rng = np.random.default_rng(P + len(mode))
+    specs = ta.polish_specs(rng, P - P // 8)
+    arrays = ta.pack(rng, specs, Lq=640, LJ=640, C=4, P=P)
+    _arrow_matches_plain(ta.to_device(arrays, mode, cuda), 4)
 
 
 @pytest.mark.parametrize("Dmax", [33, 385, 1025])
