@@ -10,13 +10,13 @@
 //   forward:  M, I, D at the <= C candidate columns     -> (P, C, R)
 //   backward: BM, BD at the <= 3C columns cand + 0..2   -> (P, 3, C, R)
 //             BM[0, 0], the pair's unmutated log-likelihood
-// (R = Lq + 1).  Masks, logaddexp nesting, NEG = -1e30 and the per-base
-// tier mode follow arrow.py:113-210: a forward row takes base i-1's tier
-// (qt_m1), a backward row takes base i's tier for its M/I edges and base
-// i-1's for the within-row D edges (tMD, tDD).  Rows past n and columns
-// past m are NEG in the reference; the kernel writes NEG there without
-// computing them.  A candidate column is clipped into [0, LJ) first and
-// then read, as the reference's gather does.
+// (R = Lq + 1, C <= 8).  Masks, NEG = -1e30 and the per-base tier mode
+// follow arrow.py:113-210: a forward row takes base i-1's tier (qt_m1), a
+// backward row takes base i's tier for its M/I edges and base i-1's for
+// the within-row D edges (tMD, tDD).  Rows past n and columns past m are
+// NEG in the reference; the kernel writes NEG there without computing
+// them.  A candidate column is clipped into [0, LJ) first and then read,
+// as the reference's gather does.
 //
 //   Layout: grid (P, 2); block (p, 0) runs the forward sweep of pair p and
 //   block (p, 1) its backward sweep, so a pair's score depends on no other
@@ -24,28 +24,44 @@
 //   consecutive rows, a lane a row, and walk it by antidiagonals: at step
 //   s the lane of stripe row r computes column s - r (backward: mc - s +
 //   r).  So the in-row recurrence (D from column j-1, or BD from j+1) is
-//   the lane's own register chain, and the previous row comes from the
-//   lane above by shuffle: its newest values (column j) and the ones it
-//   passed down one step earlier (column j -+ 1).  Across warps the edge is
-//   one shared-memory word a warp and step, double-buffered by step parity,
-//   with one barrier a step (none at NW = 1); across stripes the stripe's
-//   last row goes through a shared-memory row, double-buffered by stripe
-//   parity.  Each lane keeps its row's read base and its ten params in
-//   registers; the template base and a bit mask of the output slots that
-//   read the column come from shared memory, one word each a step.
+//   the lane's own register chain, with no scan and no barrier a row; the
+//   previous row comes from the lane above by shuffle: its newest values
+//   (column j) and the ones it passed down one step earlier (column
+//   j -+ 1).  Across warps the edge is one shared-memory word a warp and
+//   step, double-buffered by step parity, with one barrier a step; across
+//   stripes the stripe's last row goes through a shared-memory row,
+//   double-buffered by stripe parity.  Each lane keeps its row's read base
+//   and its params in registers; one shared word a column carries the
+//   template base and the bits of the output slots that read the column.
+//   The steps between a stripe's fill and drain run without masks.  NW is
+//   chosen by the launch: 8, 4 or 2, the most that keep the 2P sweeps
+//   within four warps a scheduler.
 //
-//   The logaddexp is max + log1p(exp(-|a - b|)) in full precision, nested
-//   as the reference nests it, so NEG + NEG stays NEG.
+//   The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx): the
+//   params are scaled by log2(e) as they are staged and the outputs by
+//   ln(2) as they are stored; 7 SFU operations a cell.  Against the plain
+//   version (natural log, full-precision expf/log1pf) the raw outputs stay
+//   within 1.7e-5 relative at the polish's shape.
 //
-//   What bounds it: every cell is a dependent chain of a shuffle and one
-//   or two logaddexps, and the logaddexps' expf and log1pf run on the FMA
-//   pipe (about four a cell).  Device-memory traffic is the inputs once
-//   and 3C + 6C floats a row.
+//   What bounds it (measured with scripts/tune_arrow.py on an H100, no
+//   profiler): the step's dependent chain and its issue, not the SFU.  A
+//   lone warp takes ~260 cycles a step where the shuffle -> logaddexp
+//   chain is ~90; at P = 512 a scheduler holds ~4 warps and retires a
+//   warp-step every ~240 cycles, against 56 SFU cycles and ~110 issued
+//   instructions.  Measured and dropped: 1 warp a block (the fastest at
+//   P = 512 before the unmasked phase, slowest at small P), the accurate
+//   expf/log1pf logaddexp (1.7-2x slower), warps pipelined over stripes
+//   without a barrier (a shared counter a stripe, the M/I terms
+//   precombined by the row above: 1.6x slower), and one block running
+//   both sweeps of its pair interleaved (no gain: twice the work took
+//   twice the time).  Device-memory traffic is the inputs once and the
+//   outputs (3C + 6C floats a row).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
 
 #include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,9 +69,21 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPad = 4;          // seq.PAD: never matches
-constexpr int kMaxWarps = 4;     // the edge buffer's size
+constexpr int kMaxWarps = 8;     // the edge buffer's size
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned kSlotBits = 0xffffffu;  // a column word: 24 slot bits,
+constexpr int kBaseShift = 24;             // then the template base
+
+// The block's dynamic shared memory, indexed directly so that every access
+// is a shared-memory load with a known window:
+//   [0, np)                 the tier table or the pair's params, in log2 units
+//   [o_rows, + 6 LJ)        two sets of the stripe's edge row: M, I, D (or
+//                           BM, BI), LJ floats each
+//   [o_edge, + 6 kMaxWarps) the cross-warp words, by step parity
+//   [o_col, + LJ)           a word a column: output slot bits, template base
+//   then bytes: the read (Lq) and its tier ids (R, per-base mode)
+extern __shared__ float smem[];
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -69,245 +97,363 @@ __device__ __forceinline__ float lg2(float x) {
   return y;
 }
 
-// logaddexp of two and of three terms.  kFast: base 2 on the SFU (the
-// values are in log2 units), the three-term sum as max + lg2(1 + ex2 + ex2)
-// of the other two; else natural log, nested as the reference nests it.
-template <bool kFast>
+// logaddexp of two and of three terms in log2 units, on the SFU:
+// max + lg2(1 + ex2(-|a - b|)), and for three terms max + lg2(1 + ex2 +
+// ex2) of the other two (3 SFU operations, not 4).  NEG + NEG stays NEG:
+// ex2(0) = 1 and NEG + lg2(2) == NEG in float32.
 __device__ __forceinline__ float lae(float a, float b) {
-  if (kFast) return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
-  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+  return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
 }
 
-template <bool kFast>
 __device__ __forceinline__ float lae3(float a, float b, float c) {
-  if (kFast) {
-    const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
-    const float hi = fmaxf(hi_ab, c);
-    const float lo = fminf(lo_ab, c);
-    const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
-    return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
-  }
-  return lae<false>(lae<false>(a, b), c);
+  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
+  const float hi = fmaxf(hi_ab, c);
+  const float lo = fminf(lo_ab, c);
+  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
+  return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
 }
 
-// An output value in natural-log units; kFast values are in log2 units,
-// and NEG stays NEG.
-template <bool kFast>
+// An output value back in natural-log units; NEG stays NEG.
 __device__ __forceinline__ float to_ln(float v) {
-  if (!kFast) return v;
   return v < -1e29f ? kNeg : v * kLn2;
 }
 
-__device__ __forceinline__ const float* tier_row(const float* tp,
-                                                 const int8_t* sqt, int idx,
-                                                 int T) {
-  if (sqt == nullptr) return tp;  // per-pair params
-  int k = sqt[idx];
-  k = k < 0 ? 0 : (k > T - 1 ? T - 1 : k);  // a gather clamps its index
-  return tp + 10 * k;
-}
-
-struct Shared {
-  const float* tp;     // tier table or the pair's params (log2 if kFast)
-  float* rows;         // 2 x 3 stripe-edge rows of LJ floats
-  float* edge;         // 2 x kMaxWarps x 3 cross-warp words
-  const unsigned* slots;  // per column: the output slots that read it
-  const int8_t* sq;
-  const int8_t* st;
-  const int8_t* sqt;   // tier ids (R), or nullptr
+// The ten params of a row: tier k of the table (clamped like a gather), or
+// the pair's own.
+struct Params {
+  float em_match, em_mis, em_ins, tMM, tMI, tMD, tIM, tII, tDM, tDD;
 };
 
-template <int NW, bool kFast>
-__device__ void forward_sweep(const Shared& sh, int T, int n, int m, int Lq,
-                              int LJ, int C, float* afM, float* afI,
-                              float* afD, int p) {
-  constexpr int kRows = 32 * NW;
-  const int r = threadIdx.x;
-  const int lane = r & 31;
-  const int warp = r >> 5;
-  const int R = Lq + 1;
-  const int i_end = min(n, Lq);   // rows past n are NEG
-  const int mc = min(m, LJ - 1);  // columns past m are NEG
-  float* rin = sh.rows;           // the row above the stripe: M, I, D
-  float* rout = sh.rows + 3 * LJ;
-  for (int j = r; j <= mc; j += kRows)
-    rin[j] = rin[LJ + j] = rin[2 * LJ + j] = kNeg;
-  __syncthreads();
-  for (int i0 = 0; i0 <= i_end; i0 += kRows) {
-    const int i = i0 + r;
-    const bool live = i <= i_end;
-    // every edge into row i consumes q[i-1]: base i-1's tier (clip 0)
-    const float* pr = tier_row(sh.tp, sh.sqt, live && i >= 1 ? i - 1 : 0, T);
-    const float em_match = pr[0], em_mis = pr[1], em_ins = pr[2];
-    const float tMM = pr[3], tMI = pr[4], tMD = pr[5];
-    const float tIM = pr[6], tII = pr[7], tDM = pr[8], tDD = pr[9];
-    const int qc = live && i >= 1 ? sh.sq[i - 1] : kPad;
-    // own values at column j-1; the row above at column j-1
-    float Mc = kNeg, Ic = kNeg, Dc = kNeg;
-    float dM = kNeg, dI = kNeg, dD = kNeg;
-    const int steps = mc + min(kRows, i_end - i0 + 1);
-    for (int s = 0; s < steps; ++s) {
-      const int j = s - r;
-      // the row above at column j: the lane above's newest values
-      float uM = __shfl_up_sync(kFull, Mc, 1);
-      float uI = __shfl_up_sync(kFull, Ic, 1);
-      float uD = __shfl_up_sync(kFull, Dc, 1);
-      if (lane == 0) {
-        const bool in = j >= 0 && j <= mc;
-        if (warp == 0) {
-          uM = in ? rin[j] : kNeg;
-          uI = in ? rin[LJ + j] : kNeg;
-          uD = in ? rin[2 * LJ + j] : kNeg;
-        } else {
-          const float* e = sh.edge + ((s - 1) & 1) * 3 * kMaxWarps +
-                           3 * (warp - 1);
-          uM = in ? e[0] : kNeg;
-          uI = in ? e[1] : kNeg;
-          uD = in ? e[2] : kNeg;
-        }
-      }
-      if (live && j >= 0 && j <= mc) {
-        const int tg = j >= 1 ? sh.st[j - 1] : kPad;
-        const float em = (qc == tg && qc < 4) ? em_match : em_mis;
-        float M = kNeg;
-        if (i >= 1 && j >= 1)
-          M = em + lae3<kFast>(dM + tMM, dI + tIM, dD + tDM);
-        else if (i == 0 && j == 0)
-          M = 0.0f;
-        const float I =
-            i >= 1 ? em_ins + lae<kFast>(uM + tMI, uI + tII) : kNeg;
-        const float D = j >= 1 ? lae<kFast>(Mc + tMD, Dc + tDD) : kNeg;
-        Mc = M;
-        Ic = I;
-        Dc = D;
-        for (unsigned mk = sh.slots[j]; mk != 0; mk &= mk - 1) {
-          const int c = __ffs(mk) - 1;
-          const size_t o = (static_cast<size_t>(p) * C + c) * R + i;
-          afM[o] = to_ln<kFast>(M);
-          afI[o] = to_ln<kFast>(I);
-          afD[o] = to_ln<kFast>(D);
-        }
-        if (r == kRows - 1) {
-          rout[j] = M;
-          rout[LJ + j] = I;
-          rout[2 * LJ + j] = D;
-        }
-      }
-      dM = uM;
-      dI = uI;
-      dD = uD;
-      if (NW > 1) {
-        if (lane == 31) {
-          float* e = sh.edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
-          e[0] = Mc;
-          e[1] = Ic;
-          e[2] = Dc;
-        }
-        __syncthreads();
-      }
-    }
-    float* x = rin;
-    rin = rout;
-    rout = x;
-    __syncthreads();
+__device__ __forceinline__ Params params_of(const int8_t* sqt, int idx,
+                                            int T) {
+  int k = 0;
+  if (sqt != nullptr) {
+    k = sqt[idx];
+    k = k < 0 ? 0 : (k > T - 1 ? T - 1 : k);
   }
+  const float* pr = smem + 10 * k;
+  return {pr[0], pr[1], pr[2], pr[3], pr[4], pr[5], pr[6], pr[7], pr[8],
+          pr[9]};
 }
 
-template <int NW, bool kFast>
-__device__ void backward_sweep(const Shared& sh, int T, int n, int m,
-                               int Lq, int LJ, int C, float* bM, float* bD,
-                               float* ll_cur, int p) {
-  constexpr int kRows = 32 * NW;
-  const int r = threadIdx.x;
-  const int lane = r & 31;
-  const int warp = r >> 5;
-  const int R = Lq + 1;
-  const int i_start = min(n, Lq);  // rows past n are NEG
-  const int mc = min(m, LJ - 1);   // columns past m are NEG
-  float* rin = sh.rows;            // the row below the stripe: BM, BI
-  float* rout = sh.rows + 3 * LJ;
-  for (int j = r; j <= mc; j += kRows) rin[j] = rin[LJ + j] = kNeg;
-  __syncthreads();
-  for (int i0 = i_start; i0 >= 0; i0 -= kRows) {
-    const int i = i0 - r;
-    const bool live = i >= 0;
+// One direction's shared-memory region: its two sets of stripe-edge rows,
+// its cross-warp words and its column words.
+struct Region {
+  int o_rows, o_edge, o_col;
+};
+
+__host__ __device__ constexpr int region_floats(int LJ) {
+  return 7 * LJ + 6 * kMaxWarps;
+}
+
+// The forward sweep of one pair, a stripe of 32 NW rows at a time: begin
+// a stripe, step it (a lane a row, column s - r at step s), end it.
+template <int NW>
+struct Forward {
+  static constexpr int kRows = 32 * NW;
+  const Region g;
+  const int8_t* sq;
+  const int8_t* sqt;
+  const int T, m, LJ, C, p, R, i_end, mc, r, lane, warp;
+  float* const afM;
+  float* const afI;
+  float* const afD;
+  int rin, rout;                 // the row above the stripe: M, I, D
+  // the stripe's row
+  int i, q4;
+  bool live, row0, last;
+  unsigned live_bits;
+  Params P;
+  float Mc, Ic, Dc;              // own values at column j-1
+  float dM, dI, dD;              // the row above at column j-1
+
+  __device__ Forward(const Region& g_, const int8_t* sq_, const int8_t* sqt_,
+                     int T_, int n_, int m_, int Lq_, int LJ_, int C_, int p_,
+                     float* afM_, float* afI_, float* afD_)
+      : g(g_), sq(sq_), sqt(sqt_), T(T_), m(m_), LJ(LJ_), C(C_), p(p_),
+        R(Lq_ + 1), i_end(min(n_, Lq_)), mc(min(m_, LJ_ - 1)),
+        r(threadIdx.x), lane(threadIdx.x & 31), warp(threadIdx.x >> 5),
+        afM(afM_), afI(afI_), afD(afD_), rin(g_.o_rows),
+        rout(g_.o_rows + 3 * LJ_) {}
+
+  __device__ void init_rows() {
+    for (int j = r; j <= mc; j += kRows)
+      smem[rin + j] = smem[rin + LJ + j] = smem[rin + 2 * LJ + j] = kNeg;
+  }
+
+  __device__ void begin(int k) {
+    i = kRows * k + r;
+    live = i <= i_end;
+    // every edge into row i consumes q[i-1]: base i-1's tier (clip 0)
+    const int ib = live && i >= 1 ? i - 1 : 0;
+    P = params_of(sqt, ib, T);
+    q4 = live && i >= 1 && sq[ib] < 4 ? sq[ib] : -1;
+    row0 = i == 0;
+    last = r == kRows - 1;
+    live_bits = live ? kSlotBits : 0u;
+    Mc = Ic = Dc = dM = dI = dD = kNeg;
+  }
+
+  template <bool kMask>
+  __device__ __forceinline__ void step(int s) {
+    const int j = s - r;
+    const bool in =
+        !kMask || static_cast<unsigned>(j) <= static_cast<unsigned>(mc);
+    const int jc = in ? j : 0;
+    const unsigned w = reinterpret_cast<const unsigned*>(smem)[g.o_col + jc];
+    // the row above at column j: the lane above's newest values, or for
+    // lane 0 the stripe's edge row (warp 0) or the warp above's word
+    float uM = __shfl_up_sync(kFull, Mc, 1);
+    float uI = __shfl_up_sync(kFull, Ic, 1);
+    float uD = __shfl_up_sync(kFull, Dc, 1);
+    int e = rin + jc, es = LJ;
+    if (NW > 1 && warp > 0) {
+      e = g.o_edge + ((s - 1) & 1) * 3 * kMaxWarps + 3 * (warp - 1);
+      es = 1;
+    }
+    const float eM = smem[e], eI = smem[e + es], eD = smem[e + 2 * es];
+    if (lane == 0) {
+      uM = in ? eM : kNeg;
+      uI = in ? eI : kNeg;
+      uD = in ? eD : kNeg;
+    }
+    const int tg = static_cast<int>(w >> kBaseShift);
+    const float em = q4 == tg ? P.em_match : P.em_mis;
+    float M = em + lae3(dM + P.tMM, dI + P.tIM, dD + P.tDM);
+    float I = P.em_ins + lae(uM + P.tMI, uI + P.tII);
+    float D = lae(Mc + P.tMD, Dc + P.tDD);
+    bool act = live;
+    if (kMask) {
+      M = j >= 1 && !row0 ? M : (row0 && j == 0 ? 0.0f : kNeg);
+      I = row0 ? kNeg : I;                        // row 0 has no I
+      D = j >= 1 ? D : kNeg;
+      act = live && in;
+    }
+    if (!kMask || act) {
+      Mc = M;
+      Ic = I;
+      Dc = D;
+    }
+    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1) {
+      const int c = __ffs(mk) - 1;
+      const size_t o = (static_cast<size_t>(p) * C + c) * R + i;
+      afM[o] = to_ln(M);
+      afI[o] = to_ln(I);
+      afD[o] = to_ln(D);
+    }
+    if (last && (!kMask || act)) {
+      smem[rout + jc] = M;
+      smem[rout + LJ + jc] = I;
+      smem[rout + 2 * LJ + jc] = D;
+    }
+    dM = uM;
+    dI = uI;
+    dD = uD;
+    if (NW > 1 && lane == 31) {
+      const int o = g.o_edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
+      smem[o] = Mc;
+      smem[o + 1] = Ic;
+      smem[o + 2] = Dc;
+    }
+  }
+
+  __device__ void end() {
+    const int x = rin;
+    rin = rout;
+    rout = x;
+  }
+};
+
+// The backward sweep of one pair, from row min(n, Lq) down: the stripe's
+// lane r holds row i0 - r and computes column mc - s + r at step s.
+template <int NW>
+struct Backward {
+  static constexpr int kRows = 32 * NW;
+  const Region g;
+  const int8_t* sq;
+  const int8_t* sqt;
+  const int T, n, m, Lq, LJ, C, p, R, i_start, mc, r, lane, warp;
+  float* const bM;
+  float* const bD;
+  float* const ll_cur;
+  int rin, rout;                 // the row below the stripe: BM, BI
+  // the stripe's row
+  int i, q4, term_j;
+  bool live, rin_q, last;
+  unsigned live_bits;
+  Params Pb;
+  float tMD, tDD;
+  float BMc, BIc, BDc;           // own values at column j+1
+  float dBM;                     // the row below's BM at column j+1
+
+  __device__ Backward(const Region& g_, const int8_t* sq_,
+                      const int8_t* sqt_, int T_, int n_, int m_, int Lq_,
+                      int LJ_, int C_, int p_, float* bM_, float* bD_,
+                      float* ll_cur_)
+      : g(g_), sq(sq_), sqt(sqt_), T(T_), n(n_), m(m_), Lq(Lq_), LJ(LJ_),
+        C(C_), p(p_), R(Lq_ + 1), i_start(min(n_, Lq_)),
+        mc(min(m_, LJ_ - 1)), r(threadIdx.x), lane(threadIdx.x & 31),
+        warp(threadIdx.x >> 5), bM(bM_), bD(bD_), ll_cur(ll_cur_),
+        rin(g_.o_rows), rout(g_.o_rows + 3 * LJ_) {}
+
+  __device__ void init_rows() {
+    for (int j = r; j <= mc; j += kRows)
+      smem[rin + j] = smem[rin + LJ + j] = kNeg;
+  }
+
+  __device__ void begin(int k) {
+    i = i_start - kRows * k - r;
+    live = i >= 0;
     // M/I edges out of row i consume q[i]; the within-row D edges (tMD,
     // tDD) stay on base i-1, mirroring the forward
-    const float* pb = tier_row(sh.tp, sh.sqt, live ? i : 0, T);
-    const float* pf = tier_row(sh.tp, sh.sqt, live && i >= 1 ? i - 1 : 0, T);
-    const float em_match = pb[0], em_mis = pb[1], em_ins = pb[2];
-    const float tMM = pb[3], tMI = pb[4], tIM = pb[6], tII = pb[7];
-    const float tDM = pb[8];
-    const float tMD = pf[5], tDD = pf[9];
-    const int qc = live && i < Lq ? sh.sq[i] : kPad;
-    const bool rin_q = i <= n - 1;   // row i still consumes a read base
-    // own values at column j+1; the row below at column j+1
-    float BMc = kNeg, BIc = kNeg, BDc = kNeg;
-    float dBM = kNeg;
-    const int steps = mc + min(kRows, i0 + 1);
-    for (int s = 0; s < steps; ++s) {
-      const int j = mc - s + r;
-      // the row below at column j: the lane above's newest values
-      float uBM = __shfl_up_sync(kFull, BMc, 1);
-      float uBI = __shfl_up_sync(kFull, BIc, 1);
-      if (lane == 0) {
-        const bool in = j >= 0 && j <= mc;
-        if (warp == 0) {
-          uBM = in ? rin[j] : kNeg;
-          uBI = in ? rin[LJ + j] : kNeg;
-        } else {
-          const float* e = sh.edge + ((s - 1) & 1) * 3 * kMaxWarps +
-                           3 * (warp - 1);
-          uBM = in ? e[0] : kNeg;
-          uBI = in ? e[1] : kNeg;
-        }
-      }
-      if (live && j >= 0 && j <= mc) {
-        float BM, BI, BD;
-        if (i == n && j == m) {  // the terminal cell
-          BM = BI = BD = 0.0f;
-        } else {
-          const float emB =
-              (qc == sh.st[j] && qc < 4) ? em_match : em_mis;
-          const float go_m = rin_q && j <= m - 1 ? emB + dBM : kNeg;
-          const float go_i = rin_q ? em_ins + uBI : kNeg;
-          BD = lae<kFast>(tDM + go_m, BDc + tDD);
-          BM = lae3<kFast>(tMM + go_m, tMI + go_i, tMD + BDc);
-          BI = lae<kFast>(tIM + go_m, tII + go_i);
-        }
-        BMc = BM;
-        BIc = BI;
-        BDc = BD;
-        for (unsigned mk = sh.slots[j]; mk != 0; mk &= mk - 1) {
-          const int sc = __ffs(mk) - 1;
-          const size_t o = (static_cast<size_t>(p) * 3 * C + sc) * R + i;
-          bM[o] = to_ln<kFast>(BM);
-          bD[o] = to_ln<kFast>(BD);
-        }
-        if (i == 0 && j == 0) ll_cur[p] = to_ln<kFast>(BM);
-        if (r == kRows - 1) {
-          rout[j] = BM;
-          rout[LJ + j] = BI;
-        }
-      }
-      dBM = uBM;
-      if (NW > 1) {
-        if (lane == 31) {
-          float* e = sh.edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
-          e[0] = BMc;
-          e[1] = BIc;
-        }
-        __syncthreads();
-      }
+    const int ib = live ? i : 0;
+    Pb = params_of(sqt, ib, T);
+    const Params Pf = params_of(sqt, ib >= 1 ? ib - 1 : 0, T);
+    tMD = Pf.tMD;
+    tDD = Pf.tDD;
+    q4 = live && i < Lq && sq[ib] < 4 ? sq[ib] : -1;
+    rin_q = i <= n - 1;          // row i still consumes a read base
+    term_j = i == n ? m : -1;    // the terminal cell's column
+    last = r == kRows - 1;
+    live_bits = live ? kSlotBits : 0u;
+    BMc = BIc = BDc = dBM = kNeg;
+  }
+
+  template <bool kMask>
+  __device__ __forceinline__ void step(int s) {
+    const int j = mc - s + r;
+    const bool in =
+        !kMask || static_cast<unsigned>(j) <= static_cast<unsigned>(mc);
+    const int jc = in ? j : 0;
+    const unsigned w = reinterpret_cast<const unsigned*>(smem)[g.o_col + jc];
+    float uBM = __shfl_up_sync(kFull, BMc, 1);
+    float uBI = __shfl_up_sync(kFull, BIc, 1);
+    int e = rin + jc, es = LJ;
+    if (NW > 1 && warp > 0) {
+      e = g.o_edge + ((s - 1) & 1) * 3 * kMaxWarps + 3 * (warp - 1);
+      es = 1;
     }
-    float* x = rin;
+    const float eBM = smem[e], eBI = smem[e + es];
+    if (lane == 0) {
+      uBM = in ? eBM : kNeg;
+      uBI = in ? eBI : kNeg;
+    }
+    const int tb = static_cast<int>(w >> kBaseShift);
+    const float emB = q4 == tb ? Pb.em_match : Pb.em_mis;
+    const bool gm = kMask ? rin_q && j <= m - 1 : rin_q;
+    const float go_m = gm ? emB + dBM : kNeg;
+    const float go_i = rin_q ? Pb.em_ins + uBI : kNeg;
+    float BD = lae(Pb.tDM + go_m, BDc + tDD);
+    float BM = lae3(Pb.tMM + go_m, Pb.tMI + go_i, tMD + BDc);
+    float BI = lae(Pb.tIM + go_m, Pb.tII + go_i);
+    bool act = live;
+    if (kMask) {
+      if (j == term_j) BM = BI = BD = 0.0f;     // the terminal cell
+      act = live && in;
+    }
+    if (!kMask || act) {
+      BMc = BM;
+      BIc = BI;
+      BDc = BD;
+    }
+    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1) {
+      const int sc = __ffs(mk) - 1;
+      const size_t o = (static_cast<size_t>(p) * 3 * C + sc) * R + i;
+      bM[o] = to_ln(BM);
+      bD[o] = to_ln(BD);
+    }
+    if (kMask && act && i == 0 && j == 0) ll_cur[p] = to_ln(BM);
+    if (last && (!kMask || act)) {
+      smem[rout + jc] = BM;
+      smem[rout + LJ + jc] = BI;
+    }
+    dBM = uBM;
+    if (NW > 1 && lane == 31) {
+      const int o = g.o_edge + (s & 1) * 3 * kMaxWarps + 3 * warp;
+      smem[o] = BMc;
+      smem[o + 1] = BIc;
+    }
+  }
+
+  __device__ void end() {
+    const int x = rin;
     rin = rout;
     rout = x;
+  }
+};
+
+// Output slots and column words of one direction: forward slot c reads
+// column clip(cand[c]) and a column's base is t[j-1]; backward slot (s, c)
+// reads clip(cand[c] + s) and a column's base is t[j].  A slot whose
+// column is past m, and every slot's rows past n, are NEG.
+template <int kThreads>
+__device__ void setup_direction(bool fwd, const Region& g,
+                                const int8_t* __restrict__ t,
+                                const int32_t* __restrict__ cand, int p,
+                                int Lq, int LJ, int C, int i_last, int mc,
+                                float* o0, float* o1, float* o2) {
+  const int tid = threadIdx.x;
+  const int R = Lq + 1;
+  unsigned* colw = reinterpret_cast<unsigned*>(smem) + g.o_col;
+  for (int k = tid; k < LJ; k += kThreads) {
+    const int jb = fwd ? k - 1 : k;
+    const int b = jb >= 0 ? t[static_cast<size_t>(p) * LJ + jb] : kPad;
+    colw[k] = static_cast<unsigned>(b & 0xff) << kBaseShift;
+  }
+  __syncthreads();
+  const int n_slots = fwd ? C : 3 * C;
+  for (int sc = tid; sc < n_slots; sc += kThreads) {
+    int c = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
+    c = c < 0 ? 0 : (c > LJ - 1 ? LJ - 1 : c);
+    if (c <= mc) atomicOr(&colw[c], 1u << sc);
+  }
+  for (int k = tid; k < n_slots * R; k += kThreads) {
+    const int sc = k / R;
+    const int i = k % R;
+    int c = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
+    c = c < 0 ? 0 : (c > LJ - 1 ? LJ - 1 : c);
+    if (i <= i_last && c <= mc) continue;
+    const size_t o = static_cast<size_t>(p) * n_slots * R + k;
+    o0[o] = o1[o] = kNeg;
+    if (o2 != nullptr) o2[o] = kNeg;
+  }
+}
+
+// One sweep (a Forward or a Backward), a stripe of 32 NW rows at a time.
+// A stripe's steps run in three phases: the fill (s < 32 NW) and the
+// drain (s >= mc) test each lane's column; between them every lane's
+// column lies in [1, mc - 1], so a step needs no mask at all (a NEG input
+// gives NEG: NEG plus a param, or plus lg2 of at most 3, is NEG in
+// float32).
+template <int NW, typename Sweep>
+__device__ void run_sweep(Sweep& w, int i_last, int mc) {
+  constexpr int kRows = 32 * NW;
+  w.init_rows();
+  __syncthreads();
+  for (int k = 0; kRows * k <= i_last; ++k) {
+    w.begin(k);
+    const int steps = mc + min(kRows, i_last - kRows * k + 1);
+    const int s1 = min(kRows, steps);
+    const int s2 = s1 == kRows ? max(s1, min(mc, steps)) : s1;
+    int s = 0;
+    for (; s < s1; ++s) {
+      w.template step<true>(s);
+      if (NW > 1) __syncthreads();
+    }
+    for (; s < s2; ++s) {
+      w.template step<false>(s);
+      if (NW > 1) __syncthreads();
+    }
+    for (; s < steps; ++s) {
+      w.template step<true>(s);
+      if (NW > 1) __syncthreads();
+    }
+    w.end();
     __syncthreads();
   }
 }
 
-template <int NW, bool kFast>
+template <int NW>
 __global__ void __launch_bounds__(32 * NW)
 arrow_sweep_kernel(const int8_t* __restrict__ q,
                    const int8_t* __restrict__ t,
@@ -320,7 +466,6 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
                    int C, float* __restrict__ afM, float* __restrict__ afI,
                    float* __restrict__ afD, float* __restrict__ bM,
                    float* __restrict__ bD, float* __restrict__ ll_cur) {
-  extern __shared__ float smem[];
   constexpr int kThreads = 32 * NW;
   const int p = blockIdx.x;
   const bool fwd = blockIdx.y == 0;
@@ -328,22 +473,14 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
   const int R = Lq + 1;
   const bool tiered = qt != nullptr;
   const int np = tiered ? 10 * T : 10;
-  float* tp = smem;                                  // np floats
-  float* rows = tp + np;                             // 6 LJ floats
-  float* edge = rows + 6 * LJ;                       // 6 kMaxWarps floats
-  unsigned* slots = reinterpret_cast<unsigned*>(edge + 6 * kMaxWarps);
-  int8_t* sq = reinterpret_cast<int8_t*>(slots + LJ);
-  int8_t* st = sq + Lq;
-  int8_t* sqt = tiered ? st + LJ : nullptr;
-  const float scale = kFast ? kLog2e : 1.0f;
+  const Region g{np, np + 6 * LJ, np + 6 * LJ + 6 * kMaxWarps};
+  int8_t* sq = reinterpret_cast<int8_t*>(smem + np + region_floats(LJ));
+  int8_t* sqt = tiered ? sq + Lq : nullptr;
   for (int k = tid; k < np; k += kThreads)
-    tp[k] = scale * (tiered ? tiers[k] : pvec[static_cast<size_t>(p) * 10 + k]);
+    smem[k] = kLog2e *
+              (tiered ? tiers[k] : pvec[static_cast<size_t>(p) * 10 + k]);
   for (int k = tid; k < Lq; k += kThreads)
     sq[k] = q[static_cast<size_t>(p) * Lq + k];
-  for (int k = tid; k < LJ; k += kThreads) {
-    st[k] = t[static_cast<size_t>(p) * LJ + k];
-    slots[k] = 0u;
-  }
   if (tiered)
     for (int k = tid; k < R; k += kThreads)
       sqt[k] = qt[static_cast<size_t>(p) * R + k];
@@ -351,61 +488,39 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
   const int m = m_arr[p];
   const int i_last = min(n, Lq);
   const int mc = min(m, LJ - 1);
-  __syncthreads();
-  // output slots: forward slot c reads column clip(cand[c]); backward slot
-  // (s, c) reads clip(cand[c] + s).  A slot whose column is past m, and
-  // every slot's rows past n, are NEG.
-  const int n_slots = fwd ? C : 3 * C;
-  for (int sc = tid; sc < n_slots; sc += kThreads) {
-    int col = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
-    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
-    if (col <= mc) atomicOr(&slots[col], 1u << sc);
-  }
-  for (int k = tid; k < n_slots * R; k += kThreads) {
-    const int sc = k / R;
-    const int i = k % R;
-    int col = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
-    col = col < 0 ? 0 : (col > LJ - 1 ? LJ - 1 : col);
-    if (i <= i_last && col <= mc) continue;
-    const size_t o = static_cast<size_t>(p) * n_slots * R + k;
-    if (fwd) {
-      afM[o] = afI[o] = afD[o] = kNeg;
-    } else {
-      bM[o] = bD[o] = kNeg;
-    }
-  }
-  __syncthreads();
-  const Shared sh{tp, rows, edge, slots, sq, st, sqt};
   if (fwd)
-    forward_sweep<NW, kFast>(sh, T, n, m, Lq, LJ, C, afM, afI, afD, p);
+    setup_direction<kThreads>(true, g, t, cand, p, Lq, LJ, C, i_last, mc,
+                              afM, afI, afD);
   else
-    backward_sweep<NW, kFast>(sh, T, n, m, Lq, LJ, C, bM, bD, ll_cur, p);
+    setup_direction<kThreads>(false, g, t, cand, p, Lq, LJ, C, i_last, mc,
+                              bM, bD, nullptr);
+  __syncthreads();
+  if (fwd) {
+    Forward<NW> f(g, sq, sqt, T, n, m, Lq, LJ, C, p, afM, afI, afD);
+    run_sweep<NW>(f, i_last, mc);
+  } else {
+    Backward<NW> b(g, sq, sqt, T, n, m, Lq, LJ, C, p, bM, bD, ll_cur);
+    run_sweep<NW>(b, i_last, mc);
+  }
 }
 
-// the variant a launch takes (warps a block, base-2 SFU logaddexp)
-int g_nw = 1;
-int g_fast = 0;
-
-template <int NW, bool kFast>
+template <int NW>
 int launch(const void* q, const void* t, const void* n, const void* m,
            const void* cand, const void* pvec, const void* qt,
            const void* tiers, int T, int P, int Lq, int LJ, int C,
            void* afM, void* afI, void* afD, void* bM, void* bD,
-           void* ll_cur, void* stream) {
+           void* ll_cur, cudaStream_t stream) {
   const int np = qt != nullptr ? 10 * T : 10;
-  const size_t smem =
-      (static_cast<size_t>(np) + 6 * static_cast<size_t>(LJ) +
-       6 * kMaxWarps + LJ) * sizeof(float) +
-      static_cast<size_t>(Lq) + LJ + (qt != nullptr ? Lq + 1 : 0);
-  if (smem > 48 * 1024) {
+  const size_t smem_bytes =
+      (static_cast<size_t>(np) + region_floats(LJ)) * sizeof(float) +
+      static_cast<size_t>(Lq) + (qt != nullptr ? Lq + 1 : 0);
+  if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        arrow_sweep_kernel<NW, kFast>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        arrow_sweep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(P, 2);
-  arrow_sweep_kernel<NW, kFast><<<grid, 32 * NW, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  arrow_sweep_kernel<NW><<<dim3(P, 2), 32 * NW, smem_bytes, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(t),
       static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
       static_cast<const int32_t*>(cand), static_cast<const float*>(pvec),
@@ -418,15 +533,8 @@ int launch(const void* q, const void* t, const void* n, const void* m,
 
 }  // namespace
 
-// Selects the variant of the next launches: nw warps a block (1, 2, 4),
-// fast 1 for the base-2 SFU logaddexp.  Returns 0, or 1 if not built.
-extern "C" int fu_arrow_set_variant(int nw, int fast) {
-  if ((nw != 1 && nw != 2 && nw != 4) || (fast != 0 && fast != 1)) return 1;
-  g_nw = nw;
-  g_fast = fast;
-  return 0;
-}
-
+// Warps a block: the most (8, 4 or 2) that keep the 2P sweeps' warps
+// within four a scheduler (P <= 132 on an H100: 8; P = 256: 4; P = 512: 2).
 extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
                                const void* m, const void* cand,
                                const void* pvec, const void* qt,
@@ -434,16 +542,19 @@ extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
                                int LJ, int C, void* afM, void* afI,
                                void* afD, void* bM, void* bD, void* ll_cur,
                                void* stream) {
-#define FU_ARROW_LAUNCH(NW, F)                                              \
-  launch<NW, F>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C, afM,    \
-                afI, afD, bM, bD, ll_cur, stream)
-  if (g_fast) {
-    if (g_nw == 4) return FU_ARROW_LAUNCH(4, true);
-    if (g_nw == 2) return FU_ARROW_LAUNCH(2, true);
-    return FU_ARROW_LAUNCH(1, true);
-  }
-  if (g_nw == 4) return FU_ARROW_LAUNCH(4, false);
-  if (g_nw == 2) return FU_ARROW_LAUNCH(2, false);
-  return FU_ARROW_LAUNCH(1, false);
-#undef FU_ARROW_LAUNCH
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long warps = 16L * sms;          // 4 schedulers x 4 warps an SM
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (2L * P * 8 <= warps)
+    return launch<8>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C,
+                     afM, afI, afD, bM, bD, ll_cur, s);
+  if (2L * P * 4 <= warps)
+    return launch<4>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C,
+                     afM, afI, afD, bM, bD, ll_cur, s);
+  return launch<2>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C, afM,
+                   afI, afD, bM, bD, ll_cur, s);
 }

@@ -352,9 +352,9 @@ def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
         _need(tiers, torch.float32, (T, 10), "tiers", dev)
         if T < 1:
             raise ValueError("empty tier table")
-    if LJ < 1 or not 1 <= C <= 10:
-        # the kernel keeps a column's 3C output slots in one 32-bit mask
-        raise ValueError(f"need LJ >= 1 and 1 <= C <= 10, got {LJ}, {C}")
+    if LJ < 1 or not 1 <= C <= 8:
+        # the kernel keeps a column's 3C output slots in 24 bits of a word
+        raise ValueError(f"need LJ >= 1 and 1 <= C <= 8, got {LJ}, {C}")
     f32 = dict(dtype=torch.float32, device=dev)
     afM, afI, afD = (torch.empty((P, C, R), **f32) for _ in range(3))
     bM, bD = (torch.empty((P, 3, C, R), **f32) for _ in range(2))

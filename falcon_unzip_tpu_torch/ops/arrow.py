@@ -12,8 +12,8 @@ read base (tier ids into a (T, 10) table).  The numeric spec is
 The row sweeps have two implementations:
 
 * on CUDA tensors, the hand-written kernel of ``csrc/arrow_splice.cu``
-  (``_kernels.arrow_sweeps``), one block per (pair, direction), the
-  within-row D recurrence as a block-wide log-semiring scan;
+  (``_kernels.arrow_sweeps``), one block per (pair, direction), a lane a
+  row on antidiagonals, the within-row D recurrence a register chain;
 * on CPU tensors, ``arrow_sweeps_plain``, the reference's two row scans
   (``fstep`` / ``bstep``) as Python loops with the Hillis-Steele ladder
   for the within-row scan.

@@ -12,8 +12,7 @@ prints one JSON line with
   ``arrow_sweeps_plain`` at P = 512, per-pair and per-base tiers, within
   ``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal;
 * the kernel's ms a launch at P = 16, 64, 256 and 512 (the launch sizes of
-  the hotspot polish and of the production chunk) in both modes, and each
-  variant's where the library builds several;
+  the hotspot polish and of the production chunk) in both modes;
 * the card's name and power limit.
 
 ``--root`` times another checkout's package with the same inputs (it
@@ -157,21 +156,6 @@ def _time_ms(fn) -> float:
     return a.elapsed_time(b) / REPS
 
 
-def _variants(kn) -> list:
-    """The (warps, fast) variants the library builds: [None] when it
-    builds one."""
-    lib = kn._load()["arrow_splice"]
-    if not hasattr(lib, "fu_arrow_set_variant"):
-        return [None]
-    return [(nw, f) for f in (0, 1) for nw in (1, 2, 4)
-            if lib.fu_arrow_set_variant(nw, f) == 0]
-
-
-def _select(kn, v) -> None:
-    if v is not None:
-        kn._load()["arrow_splice"].fu_arrow_set_variant(*v)
-
-
 def measure(ar, kn) -> dict:
     dev = torch.device("cuda")
     out = {"shape": {"Lq": L, "LJ": L, "C": C}, "check_P": 512,
@@ -179,23 +163,18 @@ def measure(ar, kn) -> dict:
     rng = np.random.default_rng(2026)
     batches = {P: pack(rng, polish_specs(rng, P), Lq=L, LJ=L, C=C)
                for P in PS}
-    variants = _variants(kn)
-    for v in variants:
-        key = "kernel" if v is None else f"nw{v[0]}" + ("_fast" * v[1])
-        _select(kn, v)
-        for mode in ("per-pair", "per-base"):
-            args = to_device(batches[512], mode, dev)
-            got = kn.arrow_sweeps(*args, C=C)
-            want = ar.arrow_sweeps_plain(*args, C=C)
-            err = max(max_rel_err(g, w) for g, w in zip(got, want))
-            out["max_rel_err"][f"{key} {mode}"] = err
-            if not err <= 1e-3:
-                raise SystemExit(f"{key} {mode}: rel err {err} over 1e-3")
-            for P in PS:
-                a = to_device(batches[P], mode, dev)
-                out["ms"][f"{key} {mode} P={P}"] = _time_ms(
-                    lambda: kn.arrow_sweeps(*a, C=C))
-    _select(kn, variants[0])
+    for mode in ("per-pair", "per-base"):
+        args = to_device(batches[512], mode, dev)
+        got = kn.arrow_sweeps(*args, C=C)
+        want = ar.arrow_sweeps_plain(*args, C=C)
+        err = max(max_rel_err(g, w) for g, w in zip(got, want))
+        out["max_rel_err"][mode] = err
+        if not err <= 1e-3:
+            raise SystemExit(f"{mode}: rel err {err} over 1e-3")
+        for P in PS:
+            a = to_device(batches[P], mode, dev)
+            out["ms"][f"{mode} P={P}"] = _time_ms(
+                lambda: kn.arrow_sweeps(*a, C=C))
     return out
 
 
