@@ -178,6 +178,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                               torch.zeros((2, 10)), None, None, C=1)
 
 
+EDGE_SEED = {k: 700 + i for i, k in enumerate(tune_arrow.EDGE_KINDS)}
+NEG_F = np.float32(-1e30)
+
+
+def _params_of(pv):
+    """HMMParams whose logs() are the ten log-params pv (float32 exact)."""
+    class _P:
+        def logs(self):
+            return {k: np.float32(pv[i]) for k, i in oh._K.items()}
+    return _P()
+
+
 @pytest.mark.parametrize("mode", ["per-pair", "per-base"])
 @pytest.mark.parametrize("kind", tune_arrow.EDGE_KINDS)
 def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
@@ -228,15 +240,3 @@ def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
                 _close(bM[p, s, c], at(B_M, colb))
                 _close(bD[p, s, c], at(B_D, colb))
         _close(ll_cur[p], B_M[0, 0])
-
-
-EDGE_SEED = {k: 700 + i for i, k in enumerate(tune_arrow.EDGE_KINDS)}
-NEG_F = np.float32(-1e30)
-
-
-def _params_of(pv):
-    """HMMParams whose logs() are the ten log-params pv (float32 exact)."""
-    class _P:
-        def logs(self):
-            return {k: np.float32(pv[i]) for k, i in oh._K.items()}
-    return _P()
