@@ -44,18 +44,19 @@
 //   within 1.7e-5 relative at the polish's shape.
 //
 //   What bounds it (measured with scripts/tune_arrow.py on an H100, no
-//   profiler): the step's dependent chain and its issue, not the SFU and
-//   not the warps in flight.  A lone warp takes ~260 cycles a step where
-//   the shuffle -> logaddexp chain is ~90; at P = 512 the time is flat
-//   from 2 to 8 warps a scheduler (1.07-1.23 ms), and moving the lg2 of
-//   the logaddexps to a degree-7 polynomial on the FMA pipe (5 or 4 SFU
-//   operations a cell instead of 7) made it 5-11% slower.  Measured and
-//   dropped: 1 warp a block, the accurate expf/log1pf logaddexp (1.9x
-//   slower), warps pipelined over stripes without a barrier (a shared
-//   counter a stripe, the M/I terms precombined by the row above: 1.6x
-//   slower), one block running both sweeps of its pair interleaved (twice
-//   the work took twice the time), and the polynomial lg2.  Device-memory
-//   traffic is the inputs once and the outputs (3C + 6C floats a row).
+//   profiler): the step's dependent chain and its instruction stream, not
+//   the SFU and not the warps in flight.  A lone warp takes ~260 cycles a
+//   step where the shuffle -> logaddexp chain is ~90 (read from the
+//   SASS); at P = 512 the time is flat from 2 to 8 warps a scheduler
+//   (1.07-1.23 ms), and moving the lg2 of the logaddexps to a degree-7
+//   polynomial on the FMA pipe (5 or 4 SFU operations a cell instead of
+//   7) made it 5-11% slower.  Measured and dropped: 1 warp a block, the
+//   accurate expf/log1pf logaddexp (1.9x slower), warps pipelined over
+//   stripes without a barrier (a shared counter a stripe, the M/I terms
+//   precombined by the row above: 1.6x slower), one block running both
+//   sweeps of its pair interleaved (twice the work took twice the time),
+//   and the polynomial lg2.  Device-memory traffic is the inputs once and
+//   the outputs (3C + 6C floats a row).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
