@@ -21,8 +21,11 @@ non-zero:
    windows (Dmax 1025), W 64/128/256.  Arrow splice sweeps: P=512,
    Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6): the raw sweep
    outputs and the splice scores, then the edge shapes of
-   scripts/tune_arrow.py (padding pairs, n and m at the stripe edges of 1,
-   2 and 4 warps, n > m, n < m, small m, m = LJ - 1 with clipped slots).
+   falcon_unzip_tpu_torch/utils/arrow_batches.py (padding pairs, n and m
+   at the warp edges and the stripe edges, n > m, n < m, small m, m = LJ -
+   1 with clipped slots) and a batch of C = 12 candidates a pair, each
+   padded to P = 64 and to P = 256 so that both warp counts (8 and 2 warps
+   a block) run them.
    Seeded pairs at 0% and 15% error; the float kernels within
    |kernel - plain| <= 1e-3 * max(1, |plain|).  Pair-HMM step ablation:
    the five feature sets at the constants of scripts/ablate_pallas.py
@@ -49,8 +52,9 @@ non-zero:
 5b. the per-base-quality hotspot polish of
    tests/test_qv_aware.py::test_polish_per_base_profile_qv on cuda (15 kb,
    20x reads of 2000 bp at 5% error, arrow_rounds 3), flat and with
-   per-base tiers: Arrow launches (3 expected each) and their device ms;
-   the tiered consensus must equal the truth;
+   per-base tiers: Arrow launches (3 each) and their device ms; the
+   tiered consensus must equal the truth and the flat one the port's flat
+   polish of the same alignments on the CPU;
 6. the ablation path: python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
    (each set's time beside the card's name and power limit);
 7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
@@ -352,14 +356,16 @@ def phase_parity_arrow(torch, np) -> dict:
     """Arrow splice sweep kernel against arrow_sweeps_plain on the card at
     the production polish shape (P=512, Lq=LJ=640, C=4): the raw sweep
     outputs and the splice scores built on them; then the edge shapes of
-    scripts/tune_arrow.py (padding pairs, n and m at the stripe edges,
-    n > m, n < m, small m, m = LJ - 1 with clipped slots)."""
+    utils/arrow_batches.py and a batch of C = 12 candidates a pair, in
+    each warp count of the kernel (8 warps a block at P = 64, 2 at
+    P = 256)."""
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.polisher import (PolisherConfig,
                                                          tier_table)
     from falcon_unzip_tpu_torch.ops import arrow as ar
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
-    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils import arrow_batches as ab
     dev = torch.device("cuda")
     rng = np.random.default_rng(2026)
     pc = PolisherConfig()
@@ -375,7 +381,7 @@ def phase_parity_arrow(torch, np) -> dict:
     qt = rng.integers(0, len(tiers), size=(P, L + 1)).astype(np.int8)
     res = {}
     for mode in ("per-pair", "per-base"):
-        args = ta.to_device((q, t, n, m, cand, pvec, qt, tiers), mode, dev)
+        args = ab.to_device((q, t, n, m, cand, pvec, qt, tiers), mode, dev)
         k_sw = ar.arrow_sweeps(*args, C=C)
         t0 = time.perf_counter()
         p_sw = ar.arrow_sweeps_plain(*args, C=C)
@@ -385,7 +391,7 @@ def phase_parity_arrow(torch, np) -> dict:
         ar.arrow_splice_plain(*args, C=C)
         torch.cuda.synchronize()
         plain_all_ms = 1e3 * (time.perf_counter() - t0)
-        raw_rel = max(ta.max_rel_err(a, b) for a, b in zip(k_sw, p_sw))
+        raw_rel = max(ab.max_rel_err(a, b) for a, b in zip(k_sw, p_sw))
         if not raw_rel <= 1e-3:
             _fail(f"arrow {mode}: raw sweep outputs rel err {raw_rel} over "
                   "the bar (or NEG slots differ)")
@@ -409,25 +415,30 @@ def phase_parity_arrow(torch, np) -> dict:
               f"sweep kernel {ms:.3f} ms (plain sweeps {plain_ms:.1f} ms) | "
               f"with splice assembly {all_ms:.3f} ms (plain "
               f"{plain_all_ms:.1f} ms)", flush=True)
+    batches = [(kind, C, ab.edge_specs(kind, LJ=L)) for kind in ab.EDGE_KINDS]
+    batches.append(("C=12", 12, ab.wide_specs(rng, LJ=L, C=12)))
     worst = 0.0
-    for kind in ta.EDGE_KINDS:
-        specs = ta.edge_specs(kind, LJ=L, edges=(31, 32, 33, 63, 64, 65,
-                                                 127, 128, 129))
-        arrays = ta.pack(rng, specs, Lq=L, LJ=L, C=C)
-        for mode in ("per-pair", "per-base"):
-            args = ta.to_device(arrays, mode, dev)
-            k_sw = ar.arrow_sweeps(*args, C=C)
-            p_sw = ar.arrow_sweeps_plain(*args, C=C)
-            rel = max(ta.max_rel_err(a, b) for a, b in zip(
-                k_sw + ar.splice_from_sweeps(*args, k_sw, C=C),
-                p_sw + ar.splice_from_sweeps(*args, p_sw, C=C)))
-            if not rel <= 1e-3:
-                _fail(f"arrow edge shapes {kind} {mode}: rel err {rel} over "
-                      "the bar (or NEG slots differ)")
-            worst = max(worst, rel)
-    print(f"[3 parity] arrow_splice edge shapes {', '.join(ta.EDGE_KINDS)}, "
-          f"both modes, Lq=LJ={L} C={C} | raw outputs and scores max rel "
-          f"err {worst:.3g} (bar 1e-3)", flush=True)
+    for nw, Pb in ((8, 64), (2, 256)):
+        if _kernels.arrow_warps(Pb) != nw:
+            _fail(f"arrow: P={Pb} launches {_kernels.arrow_warps(Pb)} warps "
+                  f"a block, not {nw}")
+        for kind, Cb, specs in batches:
+            arrays = ab.pack(rng, specs, Lq=L, LJ=L, C=Cb, P=Pb)
+            for mode in ("per-pair", "per-base"):
+                args = ab.to_device(arrays, mode, dev)
+                k_sw = ar.arrow_sweeps(*args, C=Cb)
+                p_sw = ar.arrow_sweeps_plain(*args, C=Cb)
+                rel = max(ab.max_rel_err(a, b) for a, b in zip(
+                    k_sw + ar.splice_from_sweeps(*args, k_sw, C=Cb),
+                    p_sw + ar.splice_from_sweeps(*args, p_sw, C=Cb)))
+                if not rel <= 1e-3:
+                    _fail(f"arrow edge shapes {kind} {mode} {nw} warps: rel "
+                          f"err {rel} over the bar (or NEG slots differ)")
+                worst = max(worst, rel)
+    print(f"[3 parity] arrow_splice edge shapes {', '.join(ab.EDGE_KINDS)} "
+          f"and C=12, both modes, 8 warps a block (P=64) and 2 (P=256), "
+          f"Lq=LJ={L} | raw outputs and scores max rel err {worst:.3g} "
+          "(bar 1e-3)", flush=True)
     return res
 
 
@@ -848,8 +859,9 @@ def phase_hotspot(torch, np) -> dict:
     """The per-base-quality hotspot polish of
     tests/test_qv_aware.py::test_polish_per_base_profile_qv on the card:
     flat params, then per-base tiers, each with the counts set to 0 just
-    before it and read just after.  The tiered consensus must equal the
-    truth."""
+    before it and read just after; each launches the Arrow kernel 3 times.
+    The tiered consensus must equal the truth, and the flat one the port's
+    flat polish of the same alignments on the CPU (its plain versions)."""
     from falcon_unzip_tpu_torch.models.aligner import (AlignerConfig,
                                                        ReadToContigAligner)
     from falcon_unzip_tpu_torch.models.polisher import (Polisher,
@@ -888,15 +900,29 @@ def phase_hotspot(torch, np) -> dict:
         seq = np.asarray(c.seq)
         mism = (int((seq != truth).sum()) if len(seq) == L
                 else f"length {len(seq)}")
-        res[mode] = dict(launches=launches, ms=dev_ms, mismatches=mism)
+        res[mode] = dict(launches=launches, ms=dev_ms, mismatches=mism,
+                         seq=seq)
         print(f"[5b hotspot] {mode}: polish {wall:.1f} s | {launches} Arrow "
-              f"launches (3 expected), {dev_ms:.3f} ms of device time | "
-              f"consensus vs truth: {mism} mismatches", flush=True)
+              f"launches, {dev_ms:.3f} ms of device time | consensus of "
+              f"{len(seq)} bp vs truth: {mism} mismatches", flush=True)
     if res["per-base"]["mismatches"] != 0:
         _fail(f"hotspot polish with per-base tiers differs from the truth: "
               f"{res['per-base']['mismatches']}")
-    if min(r["launches"] for r in res.values()) <= 0:
-        _fail(f"hotspot polish did not launch the Arrow kernel: {res}")
+    launches = {k: r["launches"] for k, r in res.items()}
+    if set(launches.values()) != {3}:
+        _fail(f"hotspot polish did not launch the Arrow kernel 3 times a "
+              f"mode: {launches}")
+    t0 = time.perf_counter()
+    cpu = np.asarray(Polisher(cfg, device="cpu").polish_contig(
+        "c", draft, aln, 0).seq)
+    same = len(cpu) == len(res["flat"]["seq"]) and bool(
+        (cpu == res["flat"]["seq"]).all())
+    print(f"[5b hotspot] flat on the CPU: {time.perf_counter() - t0:.1f} s, "
+          f"{len(cpu)} bp, {'equal to' if same else 'DIFFERS from'} the "
+          "card's flat consensus", flush=True)
+    if not same:
+        _fail("the flat hotspot consensus on the card differs from the "
+              "port's on the CPU")
     return res
 
 

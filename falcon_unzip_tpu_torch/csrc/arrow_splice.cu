@@ -10,7 +10,7 @@
 //   forward:  M, I, D at the <= C candidate columns     -> (P, C, R)
 //   backward: BM, BD at the <= 3C columns cand + 0..2   -> (P, 3, C, R)
 //             BM[0, 0], the pair's unmutated log-likelihood
-// (R = Lq + 1, C <= 8).  Masks, NEG = -1e30 and the per-base tier mode
+// (R = Lq + 1).  Masks, NEG = -1e30 and the per-base tier mode
 // follow arrow.py:113-210: a forward row takes base i-1's tier (qt_m1), a
 // backward row takes base i's tier for its M/I edges and base i-1's for
 // the within-row D edges (tMD, tDD).  Rows past n and columns past m are
@@ -32,10 +32,12 @@
 //   stripes the stripe's last row goes through a shared-memory row,
 //   double-buffered by stripe parity.  Each lane keeps its row's read base
 //   and its params in registers; one shared word a column carries the
-//   template base and the bits of the output slots that read the column.
-//   The steps between a stripe's fill and drain run without masks.  NW is
-//   chosen by the launch: 8, 4 or 2, the most that keep the 2P sweeps
-//   within four warps a scheduler.
+//   template base and the bits of the first 24 output slots that read the
+//   column (a direction with more slots, backward at C > 8 or forward at
+//   C > 24, keeps the rest in further words a column, 32 slots each).  The
+//   steps between a stripe's fill and drain run without masks.  NW is
+//   chosen by the launch: 8 while the 2P sweeps' warps fit four a
+//   scheduler (P <= 132 on an H100), else 2.
 //
 //   The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx): the
 //   params are scaled by log2(e) as they are staged and the outputs by
@@ -50,13 +52,16 @@
 //   SASS); at P = 512 the time is flat from 2 to 8 warps a scheduler
 //   (1.07-1.23 ms), and moving the lg2 of the logaddexps to a degree-7
 //   polynomial on the FMA pipe (5 or 4 SFU operations a cell instead of
-//   7) made it 5-11% slower.  Measured and dropped: 1 warp a block, the
-//   accurate expf/log1pf logaddexp (1.9x slower), warps pipelined over
-//   stripes without a barrier (a shared counter a stripe, the M/I terms
-//   precombined by the row above: 1.6x slower), one block running both
-//   sweeps of its pair interleaved (twice the work took twice the time),
-//   and the polynomial lg2.  Device-memory traffic is the inputs once and
-//   the outputs (3C + 6C floats a row).
+//   7) made it 5-11% slower.  Measured and dropped: 1 warp a block, 4
+//   warps a block for P = 133..264 (0.71-0.74 ms at P = 256 against 2
+//   warps' 0.74, inside the spread of two runs), the further slot words
+//   compiled into every build (3-8% slower at C = 4; they are built only
+//   for C > 8), the accurate expf/log1pf logaddexp (1.9x slower), warps
+//   pipelined over stripes without a barrier (a shared counter a stripe,
+//   the M/I terms precombined by the row above: 1.6x slower), one block
+//   running both sweeps of its pair interleaved (twice the work took twice
+//   the time), and the polynomial lg2.  Device-memory traffic is the
+//   inputs once and the outputs (3C + 6C floats a row).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -83,6 +88,7 @@ constexpr int kBaseShift = 24;             // then the template base
 //                           BM, BI), LJ floats each
 //   [o_edge, + 6 kMaxWarps) the cross-warp words, by step parity
 //   [o_col, + LJ)           a word a column: output slot bits, template base
+//   [o_ext, + nxw LJ)       the further slot words (slots 24 + 32 x ..), by x
 //   then bytes: the read (Lq) and its tier ids (R, per-base mode)
 extern __shared__ float smem[];
 
@@ -138,18 +144,30 @@ __device__ __forceinline__ Params params_of(const int8_t* sqt, int idx,
 }
 
 // One direction's shared-memory region: its two sets of stripe-edge rows,
-// its cross-warp words and its column words.
+// its cross-warp words, its column words and its nxw further slot words a
+// column.
 struct Region {
-  int o_rows, o_edge, o_col;
+  int o_rows, o_edge, o_col, o_ext, nxw;
 };
 
-__host__ __device__ constexpr int region_floats(int LJ) {
-  return 7 * LJ + 6 * kMaxWarps;
+// The slot words a column needs beyond the first for n_slots slots.
+__host__ __device__ constexpr int ext_words(int n_slots) {
+  return n_slots > 24 ? (n_slots - 24 + 31) / 32 : 0;
+}
+
+__host__ __device__ constexpr int region_floats(int LJ, int nxw) {
+  return (7 + nxw) * LJ + 6 * kMaxWarps;
+}
+
+// The further slot bits of column j (word x: slots 24 + 32 x ..).
+__device__ __forceinline__ unsigned ext_bits(const Region& g, int x, int j,
+                                             int LJ) {
+  return reinterpret_cast<const unsigned*>(smem)[g.o_ext + x * LJ + j];
 }
 
 // The forward sweep of one pair, a stripe of 32 NW rows at a time: begin
 // a stripe, step it (a lane a row, column s - r at step s), end it.
-template <int NW>
+template <int NW, bool kWide>
 struct Forward {
   static constexpr int kRows = 32 * NW;
   const Region g;
@@ -195,6 +213,14 @@ struct Forward {
     Mc = Ic = Dc = dM = dI = dD = kNeg;
   }
 
+  // the row's M, I, D into output slot c
+  __device__ __forceinline__ void put(int c, float M, float I, float D) {
+    const size_t o = (static_cast<size_t>(p) * C + c) * R + i;
+    afM[o] = to_ln(M);
+    afI[o] = to_ln(I);
+    afD[o] = to_ln(D);
+  }
+
   template <bool kMask>
   __device__ __forceinline__ void step(int s) {
     const int j = s - r;
@@ -235,13 +261,11 @@ struct Forward {
       Ic = I;
       Dc = D;
     }
-    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1) {
-      const int c = __ffs(mk) - 1;
-      const size_t o = (static_cast<size_t>(p) * C + c) * R + i;
-      afM[o] = to_ln(M);
-      afI[o] = to_ln(I);
-      afD[o] = to_ln(D);
-    }
+    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1)
+      put(__ffs(mk) - 1, M, I, D);
+    for (int x = 0; kWide && act && x < g.nxw; ++x)
+      for (unsigned mk = ext_bits(g, x, jc, LJ); mk != 0; mk &= mk - 1)
+        put(24 + 32 * x + __ffs(mk) - 1, M, I, D);
     if (last && (!kMask || act)) {
       smem[rout + jc] = M;
       smem[rout + LJ + jc] = I;
@@ -267,7 +291,7 @@ struct Forward {
 
 // The backward sweep of one pair, from row min(n, Lq) down: the stripe's
 // lane r holds row i0 - r and computes column mc - s + r at step s.
-template <int NW>
+template <int NW, bool kWide>
 struct Backward {
   static constexpr int kRows = 32 * NW;
   const Region g;
@@ -320,6 +344,13 @@ struct Backward {
     BMc = BIc = BDc = dBM = kNeg;
   }
 
+  // the row's BM, BD into output slot sc = s C + c
+  __device__ __forceinline__ void put(int sc, float BM, float BD) {
+    const size_t o = (static_cast<size_t>(p) * 3 * C + sc) * R + i;
+    bM[o] = to_ln(BM);
+    bD[o] = to_ln(BD);
+  }
+
   template <bool kMask>
   __device__ __forceinline__ void step(int s) {
     const int j = mc - s + r;
@@ -357,12 +388,11 @@ struct Backward {
       BIc = BI;
       BDc = BD;
     }
-    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1) {
-      const int sc = __ffs(mk) - 1;
-      const size_t o = (static_cast<size_t>(p) * 3 * C + sc) * R + i;
-      bM[o] = to_ln(BM);
-      bD[o] = to_ln(BD);
-    }
+    for (unsigned mk = act ? w & live_bits : 0u; mk != 0; mk &= mk - 1)
+      put(__ffs(mk) - 1, BM, BD);
+    for (int x = 0; kWide && act && x < g.nxw; ++x)
+      for (unsigned mk = ext_bits(g, x, jc, LJ); mk != 0; mk &= mk - 1)
+        put(24 + 32 * x + __ffs(mk) - 1, BM, BD);
     if (kMask && act && i == 0 && j == 0) ll_cur[p] = to_ln(BM);
     if (last && (!kMask || act)) {
       smem[rout + jc] = BM;
@@ -396,17 +426,23 @@ __device__ void setup_direction(bool fwd, const Region& g,
   const int tid = threadIdx.x;
   const int R = Lq + 1;
   unsigned* colw = reinterpret_cast<unsigned*>(smem) + g.o_col;
+  unsigned* extw = reinterpret_cast<unsigned*>(smem) + g.o_ext;
   for (int k = tid; k < LJ; k += kThreads) {
     const int jb = fwd ? k - 1 : k;
     const int b = jb >= 0 ? t[static_cast<size_t>(p) * LJ + jb] : kPad;
     colw[k] = static_cast<unsigned>(b & 0xff) << kBaseShift;
   }
+  for (int k = tid; k < g.nxw * LJ; k += kThreads) extw[k] = 0u;
   __syncthreads();
   const int n_slots = fwd ? C : 3 * C;
   for (int sc = tid; sc < n_slots; sc += kThreads) {
     int c = cand[static_cast<size_t>(p) * C + sc % C] + sc / C;
     c = c < 0 ? 0 : (c > LJ - 1 ? LJ - 1 : c);
-    if (c <= mc) atomicOr(&colw[c], 1u << sc);
+    if (c > mc) continue;
+    if (sc < 24)
+      atomicOr(&colw[c], 1u << sc);
+    else
+      atomicOr(&extw[((sc - 24) >> 5) * LJ + c], 1u << ((sc - 24) & 31));
   }
   for (int k = tid; k < n_slots * R; k += kThreads) {
     const int sc = k / R;
@@ -454,7 +490,7 @@ __device__ void run_sweep(Sweep& w, int i_last, int mc) {
   }
 }
 
-template <int NW>
+template <int NW, bool kWide>
 __global__ void __launch_bounds__(32 * NW)
 arrow_sweep_kernel(const int8_t* __restrict__ q,
                    const int8_t* __restrict__ t,
@@ -474,8 +510,11 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
   const int R = Lq + 1;
   const bool tiered = qt != nullptr;
   const int np = tiered ? 10 * T : 10;
-  const Region g{np, np + 6 * LJ, np + 6 * LJ + 6 * kMaxWarps};
-  int8_t* sq = reinterpret_cast<int8_t*>(smem + np + region_floats(LJ));
+  const int o_col = np + 6 * LJ + 6 * kMaxWarps;
+  const Region g{np, np + 6 * LJ, o_col, o_col + LJ,
+                 ext_words(fwd ? C : 3 * C)};
+  int8_t* sq = reinterpret_cast<int8_t*>(
+      smem + np + region_floats(LJ, ext_words(3 * C)));
   int8_t* sqt = tiered ? sq + Lq : nullptr;
   for (int k = tid; k < np; k += kThreads)
     smem[k] = kLog2e *
@@ -497,31 +536,33 @@ arrow_sweep_kernel(const int8_t* __restrict__ q,
                               bM, bD, nullptr);
   __syncthreads();
   if (fwd) {
-    Forward<NW> f(g, sq, sqt, T, n, m, Lq, LJ, C, p, afM, afI, afD);
+    Forward<NW, kWide> f(g, sq, sqt, T, n, m, Lq, LJ, C, p, afM, afI, afD);
     run_sweep<NW>(f, i_last, mc);
   } else {
-    Backward<NW> b(g, sq, sqt, T, n, m, Lq, LJ, C, p, bM, bD, ll_cur);
+    Backward<NW, kWide> b(g, sq, sqt, T, n, m, Lq, LJ, C, p, bM, bD, ll_cur);
     run_sweep<NW>(b, i_last, mc);
   }
 }
 
-template <int NW>
-int launch(const void* q, const void* t, const void* n, const void* m,
-           const void* cand, const void* pvec, const void* qt,
-           const void* tiers, int T, int P, int Lq, int LJ, int C,
-           void* afM, void* afI, void* afD, void* bM, void* bD,
-           void* ll_cur, cudaStream_t stream) {
+template <int NW, bool kWide>
+int launch_build(const void* q, const void* t, const void* n,
+                 const void* m, const void* cand, const void* pvec,
+                 const void* qt, const void* tiers, int T, int P, int Lq,
+                 int LJ, int C, void* afM, void* afI, void* afD, void* bM,
+                 void* bD, void* ll_cur, cudaStream_t stream) {
   const int np = qt != nullptr ? 10 * T : 10;
   const size_t smem_bytes =
-      (static_cast<size_t>(np) + region_floats(LJ)) * sizeof(float) +
+      (static_cast<size_t>(np) + region_floats(LJ, ext_words(3 * C))) *
+          sizeof(float) +
       static_cast<size_t>(Lq) + (qt != nullptr ? Lq + 1 : 0);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        arrow_sweep_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        arrow_sweep_kernel<NW, kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  arrow_sweep_kernel<NW><<<dim3(P, 2), 32 * NW, smem_bytes, stream>>>(
+  arrow_sweep_kernel<NW, kWide><<<dim3(P, 2), 32 * NW, smem_bytes, stream>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(t),
       static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
       static_cast<const int32_t*>(cand), static_cast<const float*>(pvec),
@@ -532,10 +573,56 @@ int launch(const void* q, const void* t, const void* n, const void* m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The build of NW warps a block, with the further slot words compiled in
+// only where the backward's 3C slots need them (C > 8).
+template <int NW>
+int launch(const void* q, const void* t, const void* n, const void* m,
+           const void* cand, const void* pvec, const void* qt,
+           const void* tiers, int T, int P, int Lq, int LJ, int C,
+           void* afM, void* afI, void* afD, void* bM, void* bD,
+           void* ll_cur, cudaStream_t stream) {
+  if (ext_words(3 * C) > 0)
+    return launch_build<NW, true>(q, t, n, m, cand, pvec, qt, tiers, T, P,
+                                  Lq, LJ, C, afM, afI, afD, bM, bD, ll_cur,
+                                  stream);
+  return launch_build<NW, false>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq,
+                                 LJ, C, afM, afI, afD, bM, bD, ll_cur,
+                                 stream);
+}
+
+// The SMs of each device, read once.
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+// Warps a block for a batch of P pairs on the current device: 8 while the
+// 2P sweeps' warps fit four a scheduler (P <= 132 on an H100), else 2.
+int warps_for(int P, int* nw) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sms[dev] == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    g_sms[dev] = sms;
+  }
+  const long warps = 16L * g_sms[dev];   // 4 schedulers x 4 warps an SM
+  *nw = 2L * P * 8 <= warps ? 8 : 2;
+  return 0;
+}
+
 }  // namespace
 
-// Warps a block: the most (8, 4 or 2) that keep the 2P sweeps' warps
-// within four a scheduler (P <= 132 on an H100: 8; P = 256: 4; P = 512: 2).
+// The warps a block the launch of a batch of P pairs takes (8 or 2), or a
+// negated CUDA error.
+extern "C" int fu_arrow_warps(int P) {
+  int nw = 0;
+  const int e = warps_for(P, &nw);
+  return e != 0 ? -e : nw;
+}
+
 extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
                                const void* m, const void* cand,
                                const void* pvec, const void* qt,
@@ -543,18 +630,12 @@ extern "C" int fu_arrow_sweeps(const void* q, const void* t, const void* n,
                                int LJ, int C, void* afM, void* afI,
                                void* afD, void* bM, void* bD, void* ll_cur,
                                void* stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long warps = 16L * sms;          // 4 schedulers x 4 warps an SM
+  int nw = 0;
+  const int e = warps_for(P, &nw);
+  if (e != 0) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (2L * P * 8 <= warps)
+  if (nw == 8)
     return launch<8>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C,
-                     afM, afI, afD, bM, bD, ll_cur, s);
-  if (2L * P * 4 <= warps)
-    return launch<4>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C,
                      afM, afI, afD, bM, bD, ll_cur, s);
   return launch<2>(q, t, n, m, cand, pvec, qt, tiers, T, P, Lq, LJ, C, afM,
                    afI, afD, bM, bD, ll_cur, s);

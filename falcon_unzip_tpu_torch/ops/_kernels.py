@@ -154,6 +154,8 @@ def _load() -> dict:
             arrow.fu_arrow_sweeps.argtypes = (
                 [vp] * 8 + [ci] * 5 + [vp] * 7)
             arrow.fu_arrow_sweeps.restype = ci
+            arrow.fu_arrow_warps.argtypes = [ci]
+            arrow.fu_arrow_warps.restype = ci
             abl = ctypes.CDLL(paths["pairhmm_ablate"])
             abl.fu_pairhmm_ablate.argtypes = [vp, vp] + [ci] * 5 + [vp, vp]
             abl.fu_pairhmm_ablate.restype = ci
@@ -352,9 +354,8 @@ def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
         _need(tiers, torch.float32, (T, 10), "tiers", dev)
         if T < 1:
             raise ValueError("empty tier table")
-    if LJ < 1 or not 1 <= C <= 8:
-        # the kernel keeps a column's 3C output slots in 24 bits of a word
-        raise ValueError(f"need LJ >= 1 and 1 <= C <= 8, got {LJ}, {C}")
+    if LJ < 1 or C < 1:
+        raise ValueError(f"need LJ >= 1 and C >= 1, got {LJ}, {C}")
     f32 = dict(dtype=torch.float32, device=dev)
     afM, afI, afD = (torch.empty((P, C, R), **f32) for _ in range(3))
     bM, bD = (torch.empty((P, 3, C, R), **f32) for _ in range(2))
@@ -377,6 +378,16 @@ def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
             span[1].record(stream)
     ARROW.count(2 * P * R * LJ, span)
     return out
+
+
+def arrow_warps(P: int, device=None) -> int:
+    """The warps a block (8 or 2) that ``arrow_sweeps`` launches a batch
+    of P pairs with on a CUDA device."""
+    lib = _load()["arrow_splice"]
+    with torch.cuda.device(device):
+        nw = lib.fu_arrow_warps(P)
+    _check(max(0, -nw), "arrow_warps")
+    return nw
 
 
 ABLATE_FEATS = {"shift": 1, "load": 2, "lse": 4}

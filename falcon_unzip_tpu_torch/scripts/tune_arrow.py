@@ -1,18 +1,20 @@
 """Timing of the Arrow splice sweep kernel on one NVIDIA GPU, at the
-polish's shapes, with the seeded batches its checks use.
+polish's shapes, with the seeded batches of ``utils/arrow_batches.py``.
 
     python -m falcon_unzip_tpu_torch.scripts.tune_arrow
     python falcon_unzip_tpu_torch/scripts/tune_arrow.py --root OTHER_CHECKOUT
 
 At Lq = LJ = 640 and C = 4 (the polish's pinned splice shape; read and
-template lengths 300-420, half the reads exact and half at 15% error) it
+template lengths 300-420, reads at 0, 5 and 15% error in turn) it
 prints one JSON line with
 
 * the kernel's raw outputs (afM, afI, afD, bM, bD, ll_cur) checked against
-  ``arrow_sweeps_plain`` at P = 512, per-pair and per-base tiers, within
-  ``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG slots equal;
-* the kernel's ms a launch at P = 16, 64, 256 and 512 (the launch sizes of
-  the hotspot polish and of the production chunk) in both modes;
+  ``arrow_sweeps_plain`` at P = 16, 64, 256 and 512 (the launch sizes of
+  the hotspot polish and of the production chunk), per-pair and per-base
+  tiers, within ``|kernel - plain| <= 1e-3 * max(1, |plain|)`` with NEG
+  slots equal;
+* the kernel's ms a launch at each P in both modes, and the warps a block
+  each P launches with;
 * the card's name and power limit.
 
 ``--root`` times another checkout's package with the same inputs (it
@@ -33,115 +35,6 @@ import torch
 L, C = 640, 4
 PS = (16, 64, 256, 512)
 REPS = 10
-EDGES = (31, 32, 33, 127, 128, 129)
-
-
-def _pair(rng, n: int, m: int, err: float, seed: int) -> tuple:
-    """A template of m bases and a read of exactly n bases drawn from it
-    (mutated at err, then cut or extended with random bases)."""
-    from falcon_unzip_tpu_torch.utils.simulate import (mutate_read,
-                                                       random_genome)
-    t = random_genome(m, seed) if m else np.zeros(0, np.int8)
-    q = mutate_read(t, err, rng)[:n] if m else np.zeros(0, np.int8)
-    if len(q) < n:
-        q = np.concatenate([q, rng.integers(0, 4, n - len(q)).astype(np.int8)])
-    return q.astype(np.int8), t.astype(np.int8)
-
-
-def pack(rng, specs, *, Lq: int, LJ: int, C: int, P: int | None = None):
-    """PAD-filled batch of P >= len(specs) pairs (the rest padding, n = m
-    = 0) from specs [(n, m, [cand, ...]), ...].  Returns numpy (q, t, n, m,
-    cand, pvec, qt, tiers): per-pair params at the global defaults, one
-    pair at other params, and a seeded per-base tier track over the
-    polisher's tier table."""
-    from falcon_unzip_tpu_torch.models.polisher import tier_table
-    from falcon_unzip_tpu_torch.ops.pairhmm import params_vector
-    from falcon_unzip_tpu_torch.oracle.hmm import HMMParams
-    P = len(specs) if P is None else P
-    q = np.full((P, Lq), 4, np.int8)
-    t = np.full((P, LJ), 4, np.int8)
-    n = np.zeros(P, np.int32)
-    m = np.zeros(P, np.int32)
-    cand = np.full((P, C), -1, np.int32)
-    for k, (nk, mk, cc) in enumerate(specs):
-        qk, tk = _pair(rng, nk, mk, (0.0, 0.05, 0.15)[k % 3],
-                       int(rng.integers(1 << 30)))
-        q[k, :nk] = qk
-        t[k, :mk] = tk
-        n[k], m[k] = nk, mk
-        cand[k, : len(cc)] = cc[:C]
-    pvec = np.tile(params_vector(), (P, 1)).astype(np.float32)
-    pvec[P // 2] = params_vector(HMMParams(e_sub=0.1, p_del=0.1))
-    tiers = tier_table().astype(np.float32)
-    qt = rng.integers(0, len(tiers), size=(P, Lq + 1)).astype(np.int8)
-    return q, t, n, m, cand, pvec, qt, tiers
-
-
-def edge_specs(kind: str, *, LJ: int, edges=EDGES) -> list:
-    """(n, m, candidates) of the edge shapes of one kind: padding pairs,
-    n and m at the stripe edges, n > m and n < m, m much smaller than LJ,
-    and m = LJ - 1 with the candidates whose slots s = 1, 2 clip."""
-    top = LJ - 1
-    if kind == "padding":
-        return [(0, 0, [0, -1]), (0, 9, [0, 8]), (9, 0, [0, 3]),
-                (0, 0, []), (12, 15, [14, 0, 7])]
-    if kind == "stripe_edges":
-        return [(e, e2, [e2 - 1, 0, e2 // 2, -1])
-                for e in edges for e2 in (e - 1, e, e + 1)
-                if 0 < e2 <= top and e <= LJ]
-    if kind == "n_gt_m":
-        return [(min(LJ, 2 * x + 5), x, [x - 1, 1, x // 2])
-                for x in (7, LJ // 4, LJ // 2 - 3)]
-    if kind == "n_lt_m":
-        return [(x, min(top, 2 * x + 5), [0, x, 2 * x + 4])
-                for x in (7, LJ // 4, LJ // 2 - 3)]
-    if kind == "m_small":
-        return [(x, 5, [4, 0, 2]) for x in (4, 9, LJ // 3)]
-    if kind == "m_full":
-        return [(top - 2, top, [top - 1, top - 2, 0, 3]),
-                (top, top, [top - 2, top - 1]),
-                (LJ, top, [top - 1, -1, top - 2])]
-    raise ValueError(f"unknown edge kind {kind!r}")
-
-
-EDGE_KINDS = ("padding", "stripe_edges", "n_gt_m", "n_lt_m", "m_small",
-              "m_full")
-
-
-def polish_specs(rng, P: int, *, LJ: int = L, C: int = C) -> list:
-    """P pairs of the polish's shape: lengths 300-420, one candidate the
-    terminal deletion (m - 1), slots 1..C used in turn."""
-    specs = []
-    for k in range(P):
-        mk = int(rng.integers(300, 421))
-        nk = int(np.clip(mk + rng.integers(-20, 21), 1, LJ))
-        cols = rng.choice(mk, size=C, replace=False)
-        cols[0] = mk - 1
-        specs.append((nk, mk, [int(c) for c in cols[: 1 + k % C]]))
-    return specs
-
-
-def to_device(arrays, mode: str, dev) -> list:
-    """The numpy batch as the sweeps' arguments on dev: per-pair mode
-    drops qt and tiers."""
-    q, t, n, m, cand, pvec, qt, tiers = arrays
-    dt = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    args = [dt(x) for x in (q, t, n, m, cand, pvec)]
-    return args + ([dt(qt), dt(tiers)] if mode == "per-base"
-                   else [None, None])
-
-
-def max_rel_err(got, want) -> float:
-    """Largest |got - want| / max(1, |want|) over the non-NEG slots, and
-    inf if the NEG slots differ."""
-    got, want = got.double().cpu(), want.double().cpu()
-    if not torch.equal(got < -1e29, want < -1e29):
-        return float("inf")
-    ok = want > -1e29
-    if not bool(ok.any()):
-        return 0.0
-    err = (got - want).abs()[ok] / want.abs()[ok].clamp(min=1.0)
-    return float(err.max())
 
 
 def _time_ms(fn) -> float:
@@ -156,23 +49,23 @@ def _time_ms(fn) -> float:
     return a.elapsed_time(b) / REPS
 
 
-def measure(ar, kn) -> dict:
+def measure(ar, kn, ab) -> dict:
     dev = torch.device("cuda")
-    out = {"shape": {"Lq": L, "LJ": L, "C": C}, "check_P": 512,
-           "max_rel_err": {}, "ms": {}}
+    warps = getattr(kn, "arrow_warps", None)   # absent in older packages
+    out = {"shape": {"Lq": L, "LJ": L, "C": C}, "max_rel_err": {}, "ms": {},
+           "warps": {P: warps(P) if warps else None for P in PS}}
     rng = np.random.default_rng(2026)
-    batches = {P: pack(rng, polish_specs(rng, P), Lq=L, LJ=L, C=C)
-               for P in PS}
+    batches = {P: ab.pack(rng, ab.polish_specs(rng, P, LJ=L, C=C), Lq=L,
+                          LJ=L, C=C) for P in PS}
     for mode in ("per-pair", "per-base"):
-        args = to_device(batches[512], mode, dev)
-        got = kn.arrow_sweeps(*args, C=C)
-        want = ar.arrow_sweeps_plain(*args, C=C)
-        err = max(max_rel_err(g, w) for g, w in zip(got, want))
-        out["max_rel_err"][mode] = err
-        if not err <= 1e-3:
-            raise SystemExit(f"{mode}: rel err {err} over 1e-3")
         for P in PS:
-            a = to_device(batches[P], mode, dev)
+            a = ab.to_device(batches[P], mode, dev)
+            got = kn.arrow_sweeps(*a, C=C)
+            want = ar.arrow_sweeps_plain(*a, C=C)
+            err = max(ab.max_rel_err(g, w) for g, w in zip(got, want))
+            out["max_rel_err"][f"{mode} P={P}"] = err
+            if not err <= 1e-3:
+                raise SystemExit(f"{mode} P={P}: rel err {err} over 1e-3")
             out["ms"][f"{mode} P={P}"] = _time_ms(
                 lambda: kn.arrow_sweeps(*a, C=C))
     return out
@@ -183,6 +76,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", default=None,
                     help="time the package of this checkout instead")
     args = ap.parse_args(argv)
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    # the batches come from this checkout whichever package is timed
+    from falcon_unzip_tpu_torch.utils import arrow_batches as ab
     if args.root is not None:
         sys.path.insert(0, os.path.abspath(args.root))
         for name in [k for k in sys.modules
@@ -193,7 +92,7 @@ def main(argv=None) -> dict:
     from falcon_unzip_tpu_torch.ops import arrow as ar
     if not torch.cuda.is_available():
         raise RuntimeError("tune_arrow needs a CUDA device")
-    res = measure(ar, _kernels)
+    res = measure(ar, _kernels, ab)
     res["card"] = card_label()
     res["package"] = os.path.dirname(os.path.dirname(
         os.path.abspath(ar.__file__)))

@@ -20,7 +20,7 @@ from falcon_unzip_tpu.seq import PAD
 from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import arrow as port_arrow
-from falcon_unzip_tpu_torch.scripts import tune_arrow
+from falcon_unzip_tpu_torch.utils import arrow_batches
 
 # one intra-op thread: the suite runs several pytest workers on one host,
 # and a torch CPU thread pool in each would oversubscribe the cores
@@ -178,7 +178,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                               torch.zeros((2, 10)), None, None, C=1)
 
 
-EDGE_SEED = {k: 700 + i for i, k in enumerate(tune_arrow.EDGE_KINDS)}
+EDGE_SEED = {k: 700 + i for i, k in enumerate(arrow_batches.EDGE_KINDS)}
 NEG_F = np.float32(-1e30)
 
 
@@ -191,7 +191,7 @@ def _params_of(pv):
 
 
 @pytest.mark.parametrize("mode", ["per-pair", "per-base"])
-@pytest.mark.parametrize("kind", tune_arrow.EDGE_KINDS)
+@pytest.mark.parametrize("kind", arrow_batches.EDGE_KINDS)
 def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
     """The raw sweep outputs of ``arrow_sweeps_plain`` (the card kernel's
     yardstick) against the reference oracle's full matrices
@@ -209,11 +209,11 @@ def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
     the two agree (for n = 0 the oracle is given base 0's row)."""
     LJ, C = 72, 4
     rng = np.random.default_rng(EDGE_SEED[kind])
-    specs = tune_arrow.edge_specs(kind, LJ=LJ, edges=(31, 32, 33, 63, 64, 65))
-    arrays = tune_arrow.pack(rng, specs, Lq=LJ, LJ=LJ, C=C)
+    specs = arrow_batches.edge_specs(kind, LJ=LJ)      # n, m <= 72
+    arrays = arrow_batches.pack(rng, specs, Lq=LJ, LJ=LJ, C=C)
     q, t, n, m, cand, pvec, qt, tiers = arrays
     got = port_arrow.arrow_sweeps_plain(
-        *tune_arrow.to_device(arrays, mode, "cpu"), C=C)
+        *arrow_batches.to_device(arrays, mode, "cpu"), C=C)
     afM, afI, afD, bM, bD, ll_cur = (x.numpy() for x in got)
     R = LJ + 1
     for p, (nk, mk, _) in enumerate(specs):
@@ -240,3 +240,27 @@ def test_plain_sweeps_match_oracle_matrices_at_edge_shapes(kind, mode):
                 _close(bM[p, s, c], at(B_M, colb))
                 _close(bD[p, s, c], at(B_D, colb))
         _close(ll_cur[p], B_M[0, 0])
+
+
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+def test_plain_core_matches_arrow_splice_core_many_candidates(mode):
+    """C = 12 candidates a pair (36 backward slots, past the 24 of the card
+    kernel's first column word): the port's ``arrow_splice_plain`` against
+    the reference's ``arrow_splice_batch``, with clipped slots at
+    m = LJ - 1 and unused slots."""
+    LJ, C = 72, 12
+    rng = np.random.default_rng(31)
+    arrays = arrow_batches.pack(rng, arrow_batches.wide_specs(rng, LJ=LJ, C=C),
+                                Lq=LJ, LJ=LJ, C=C)
+    q, t, n, m, cand, pvec, qt, tiers = arrays
+    per_base = mode == "per-base"
+    want = ref_arrow.arrow_splice_batch(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(n), jnp.asarray(m),
+        jnp.asarray(cand), jnp.asarray(pvec),
+        jnp.asarray(qt.astype(np.int32)) if per_base else None,
+        jnp.asarray(tiers) if per_base else None, Lq=LJ, LJ=LJ, C=C)
+    got = port_arrow.arrow_splice_plain(
+        *arrow_batches.to_device(arrays, mode, "cpu"), C=C)
+    for g, w in zip(got, want):
+        _close(g.numpy(), np.asarray(w))
+    assert int((cand >= 0).sum(axis=1).max()) > 8     # past slot word 1

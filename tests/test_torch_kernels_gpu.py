@@ -20,6 +20,7 @@ import torch
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import banded_align as ba
 from falcon_unzip_tpu_torch.seq import SeqBatch
+from falcon_unzip_tpu_torch.utils import arrow_batches as ab
 from falcon_unzip_tpu_torch.utils.simulate import mutate_read, random_genome
 
 pytestmark = pytest.mark.gpu
@@ -337,34 +338,52 @@ def test_arrow_kernel_matches_plain_on_card(cuda, mode, LJ):
     assert _kernels.ARROW.launches == 1
 
 
-_ARROW_EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+# a batch size of each build of the sweep kernel: 8 warps a block up to
+# P = 132 on an H100, 2 above
+_ARROW_P = {8: 64, 2: 256}
 
 
+@pytest.mark.parametrize("nw", [8, 2])
 @pytest.mark.parametrize("mode", ["per-pair", "per-base"])
-@pytest.mark.parametrize("kind", ["padding", "stripe_edges", "n_gt_m",
-                                  "n_lt_m", "m_small", "m_full"])
-def test_arrow_kernel_edge_shapes_on_card(cuda, kind, mode):
-    """Lq = LJ = 640, C = 4: padding pairs (n = 0, m = 0), n and m at the
-    stripe edges of 1, 2 and 4 warps (31..33, 63..65, 127..129), n > m,
-    n < m, m much smaller than LJ, and m = LJ - 1 with cand = m - 1 and
-    m - 2 (the slots that clip to column m)."""
-    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
+@pytest.mark.parametrize("kind", ab.EDGE_KINDS)
+def test_arrow_kernel_edge_shapes_on_card(cuda, kind, mode, nw):
+    """Lq = LJ = 640, C = 4, in each build (8 and 2 warps a block, the
+    batch padded to its P): padding pairs (n = 0, m = 0), n and m at the
+    warp edges and the stripe edges of the builds (31..33, 63..65,
+    127..129, 255..257), n > m, n < m, m much smaller than LJ, and
+    m = LJ - 1 with cand = m - 1 and m - 2 (the slots that clip to column
+    m)."""
+    assert _kernels.arrow_warps(_ARROW_P[nw]) == nw
     rng = np.random.default_rng(len(kind) * 31 + len(mode))
-    specs = ta.edge_specs(kind, LJ=640, edges=_ARROW_EDGES)
-    arrays = ta.pack(rng, specs, Lq=640, LJ=640, C=4)
-    _arrow_matches_plain(ta.to_device(arrays, mode, cuda), 4)
+    specs = ab.edge_specs(kind, LJ=640)
+    arrays = ab.pack(rng, specs, Lq=640, LJ=640, C=4, P=_ARROW_P[nw])
+    _arrow_matches_plain(ab.to_device(arrays, mode, cuda), 4)
 
 
 @pytest.mark.parametrize("mode", ["per-pair", "per-base"])
-@pytest.mark.parametrize("P", [1, 16, 512])
+@pytest.mark.parametrize("P", [1, 16, 256, 512])
 def test_arrow_kernel_batch_sizes_on_card(cuda, P, mode):
     """The polish's launch sizes at its pinned shape (Lq = LJ = 640,
-    C = 4, lengths 300-420), the last eighth of a batch padding pairs."""
-    from falcon_unzip_tpu_torch.scripts import tune_arrow as ta
+    C = 4, lengths 300-420), the last eighth of a batch padding pairs:
+    P = 1 and 16 run the 8-warp build, 256 and 512 the 2-warp one."""
     rng = np.random.default_rng(P + len(mode))
-    specs = ta.polish_specs(rng, P - P // 8)
-    arrays = ta.pack(rng, specs, Lq=640, LJ=640, C=4, P=P)
-    _arrow_matches_plain(ta.to_device(arrays, mode, cuda), 4)
+    specs = ab.polish_specs(rng, P - P // 8, LJ=640, C=4)
+    arrays = ab.pack(rng, specs, Lq=640, LJ=640, C=4, P=P)
+    _arrow_matches_plain(ab.to_device(arrays, mode, cuda), 4)
+
+
+@pytest.mark.parametrize("nw", [8, 2])
+@pytest.mark.parametrize("mode", ["per-pair", "per-base"])
+@pytest.mark.parametrize("C", [9, 20])
+def test_arrow_kernel_many_candidates_on_card(cuda, C, mode, nw):
+    """More candidates a pair than the 8 whose 3C backward slots fit the
+    kernel's first column word (the builds with further slot words): C =
+    9 (one further word backward) and C = 20 (two), with clipped and
+    unused slots, in each warp count."""
+    rng = np.random.default_rng(C + len(mode))
+    arrays = ab.pack(rng, ab.wide_specs(rng, LJ=640, C=C), Lq=640, LJ=640,
+                     C=C, P=_ARROW_P[nw])
+    _arrow_matches_plain(ab.to_device(arrays, mode, cuda), C)
 
 
 @pytest.mark.parametrize("Dmax", [33, 385, 1025])
