@@ -18,7 +18,14 @@ non-zero:
    short pairs in a long bucket (n + m under half of Dmax: the early stop
    and the MOVE_NONE tail) and a batch of pairs that cannot align (dist
    INF); all bit-exact.  Pair-HMM forward: P=256, 512 bp
-   windows (Dmax 1025), W 64/128/256.  Arrow splice sweeps: P=512,
+   windows (Dmax 1025), W 64/128/256, each time beside its bound and SFU
+   floor; then the edge batches of
+   falcon_unzip_tpu_torch/utils/hmm_batches.py (corners out of the band,
+   n = 0 or m = 0, n + m around the prologue's end, a cut schedule,
+   corners at the band's edges, mixed lengths, P = 1 and 37) in every
+   build, W 32/64/128/256/512, and 50 kb rows (the builds that read the
+   bases from device memory), out-of-band pairs exactly NEG.  Arrow
+   splice sweeps: P=512,
    Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6): the raw sweep
    outputs and the splice scores, then the edge shapes of
    falcon_unzip_tpu_torch/utils/arrow_batches.py (padding pairs, n and m
@@ -43,7 +50,8 @@ non-zero:
    covered column a mutation candidate (margin_frac 1.01), equal the
    same run with the scorer's plain version on the card, and the window
    of tests/test_polisher.py::test_arrow_matches_window_oracle equals
-   oracle.hmm.polish_window_oracle;
+   oracle.hmm.polish_window_oracle; the P, Lq, Lt and W of each pair-HMM
+   launch, and the kernel's time at the largest;
 5. the main path at size: 3-unzip then 4-polish on cuda over a diploid
    genome of --genome-bp (default 1 Mb) with the n50 contig profile, 25x
    preads and 29x raw reads at 3% error (the recipe of
@@ -311,10 +319,12 @@ def _windows(np, rng, P, win, tlen):
 
 def phase_parity_hmm(torch, np) -> dict:
     """Pair-HMM forward kernel against pairhmm_forward_plain on the card
-    at the bench shape (P=256, 512 bp windows, Dmax 1025)."""
+    at the bench shape (P=256, 512 bp windows, Dmax 1025), then on the edge
+    batches of utils/hmm_batches.py in every build."""
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    from falcon_unzip_tpu_torch.utils import hmm_batches as hb
     dev = torch.device("cuda")
     rng = np.random.default_rng(2025)
     P, WIN = 256, 512
@@ -341,14 +351,40 @@ def phase_parity_hmm(torch, np) -> dict:
         if not within or not bool(torch.isfinite(k).all()):
             _fail(f"pairhmm W={W}: max abs err {err} rel {rel} over the bar")
         ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 5)
-        res[W] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel,
-                      work=bench.pairhmm_work(n, m, Dmax=Dmax, W=W,
-                                              LQG=qg.shape[1],
-                                              LTG=trg.shape[1]))
+        work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
+                                  LTG=trg.shape[1])
+        res[W] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel, work=work)
+        bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
         print(f"[3 parity] pairhmm_forward W={W} P={P} win={WIN} Dmax={Dmax}"
               f" in-band {int(ok.sum())}/{P} | max abs err {err:.3g} rel "
               f"{rel:.3g} (bar 1e-3) | kernel {ms:.3f} ms (plain "
-              f"{plain_ms:.1f} ms)", flush=True)
+              f"{plain_ms:.1f} ms) | bound {bound:.4f} ms, SFU floor "
+              f"{work['sfu_ms']:.4f} ms", flush=True)
+    # the edge batches in every build (one a band width), then rows too
+    # long for the shared-memory stage (the builds reading device memory)
+    worst = 0.0
+    batches = [(W, kind, hb.edge_batch(kind, W)) for W in (32, 64, 128, 256,
+                                                          512)
+               for kind in hb.EDGE_KINDS]
+    L = 50_000
+    q, t, n, m = hb.pack(rng, [(0, 0), (5, 9), (700, 690), (400, 395)],
+                         Lq=L, Lt=L)
+    batches += [(W, "rows_50kb", {"q": q, "t": t, "n": n, "m": m,
+                                  "Dmax": 2 * L + 1}) for W in (32, 128, 512)]
+    for W, kind, b in batches:
+        args, kw = hb.to_device(b, W, pvec, dev)
+        k = ph.pairhmm_forward(*args, **kw)
+        p = ph.pairhmm_forward_plain(*args, **kw)
+        rel = hb.max_rel_err(k, p)
+        out = p < -1e29
+        if not rel <= 1e-3 or not bool((k[out] == -1e30).all()):
+            _fail(f"pairhmm edge batch {kind} W={W}: rel err {rel} over the "
+                  "bar, or an out-of-band pair not exactly NEG")
+        worst = max(worst, rel)
+    print(f"[3 parity] pairhmm_forward edge batches {', '.join(hb.EDGE_KINDS)}"
+          f" at W = 32/64/128/256/512 and 50 kb rows at W = 32/128/512 | max "
+          f"rel err {worst:.3g} (bar 1e-3), out-of-band pairs exactly NEG",
+          flush=True)
     return res
 
 
@@ -673,6 +709,22 @@ class _PlainScorer:
             lo, self.pvec, W=self.W, Lt=t.shape[1], G=G).cpu().numpy()
 
 
+class _ShapeLog:
+    """A scorer that records the (P, Lq, Lt) of each call and keeps the
+    inputs of the largest, then hands the call on."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.shapes = []
+        self.largest = None
+
+    def __call__(self, q, t, n, m):
+        self.shapes.append((q.shape[0], q.shape[1], t.shape[1]))
+        if self.largest is None or q.shape[0] > self.largest[0].shape[0]:
+            self.largest = (q, t, n, m)
+        return self.inner(q, t, n, m)
+
+
 def phase_reforward(torch, np, d) -> dict:
     """Re-forward polish through the pair-HMM kernel on the golden
     fixture's contigs and raw-read AlnSet, against the same polish with
@@ -695,10 +747,10 @@ def phase_reforward(torch, np, d) -> dict:
     # margin_frac > 1 makes every covered column a candidate, so every
     # window with enough reads scores its mutations through the scorer
     pcfg = PolisherConfig(margin_frac=1.01)
+    log = _ShapeLog(PairHMMScorer(W=W, device="cuda"))
     _kernels.reset_counts()
     t0 = time.perf_counter()
-    got = Polisher(pcfg, scorer=PairHMMScorer(
-        W=W, device="cuda")).polish_all(contigs, aln)
+    got = Polisher(pcfg, scorer=log).polish_all(contigs, aln)
     kernel_s = time.perf_counter() - t0
     launches = _kernels.PAIRHMM.launches
     cells = _kernels.PAIRHMM.cells
@@ -731,6 +783,25 @@ def phase_reforward(torch, np, d) -> dict:
           f"{kernel_s:.1f} s, {launches} pair-HMM launches, {cells} band "
           f"cells | plain run {plain_s:.1f} s | consensus equal | oracle "
           f"window equal", flush=True)
+    # the launches' shapes, and the kernel timed at the largest one
+    from collections import Counter
+    from falcon_unzip_tpu_torch import bench
+    from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    from falcon_unzip_tpu_torch.utils import hmm_batches as hb
+    shapes = ", ".join(f"{k} x P={a} Lq={b} Lt={c}" for (a, b, c), k in
+                       sorted(Counter(log.shapes).items()))
+    q, t, n, m = log.largest
+    b = {"q": q, "t": t, "n": n.astype(np.int32), "m": m.astype(np.int32),
+         "Dmax": q.shape[1] + t.shape[1] + 1}
+    args, kw = hb.to_device(b, W, ph.params_vector(), torch.device("cuda"))
+    ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 10)
+    work = bench.pairhmm_work(b["n"], b["m"], Dmax=b["Dmax"], W=W,
+                              LQG=args[0].shape[1], LTG=args[1].shape[1])
+    bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
+    print(f"[4b reforward] launch shapes at W={W}: {shapes} | largest "
+          f"P={q.shape[0]} Lq={q.shape[1]} Lt={t.shape[1]}: kernel {ms:.4f} "
+          f"ms, bound {bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
+          flush=True)
     return {"launches": launches}
 
 
@@ -968,14 +1039,18 @@ def phase_bench() -> dict:
 
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
-    """One kernel of the kernels line; its bound from this run's work."""
+    """One kernel of the kernels line; its bound (and SFU floor, where the
+    work counts one) from this run's work."""
     from falcon_unzip_tpu_torch import bench
     bound, by = bench.bound_ms(work["ops"], work["bytes"], work["peak"])
-    return {"name": name, "route": "cuda",
-            "source": "falcon_unzip_tpu_torch/csrc/" + source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None}
+    entry = {"name": name, "route": "cuda",
+             "source": "falcon_unzip_tpu_torch/csrc/" + source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": None}
+    if "sfu_ms" in work:
+        entry["sfu_floor_ms"] = work["sfu_ms"]
+    return entry
 
 
 def main(argv=None) -> int:

@@ -70,6 +70,13 @@ OPS_PER_CELL = {
     "arrow_splice": 66,
 }
 
+# Transcendentals a cell on the SFU (MUFU ex2 / lg2) in the card kernel's
+# base-2 logaddexp: 3 for M's three-term form, 2 each for I and D.  The
+# bound above counts them at the FMA rate; the SFU starts 16 a clock on an
+# SM (132 SMs x 16 x 1.98 GHz).
+SFU_PER_CELL = {"pairhmm_forward": 7}
+SFU_PEAK = 132 * 16 * 1.98e9
+
 # ops/banded_align.py:125-151 per antidiagonal and pair, int32: the i >= 1
 # guard at the band's low edge and the j >= 1 guard at the j = 0 cell (a
 # compare and 2 selects each: 6), the valid mask at the i = n and j = m
@@ -106,14 +113,17 @@ def bound_ms(ops: float, nbytes: float, ops_per_s: float) -> tuple:
 
 
 def pairhmm_work(n, m, *, Dmax: int, W: int, LQG: int, LTG: int) -> dict:
-    """Band cells, operations and bytes of one pair-HMM forward call."""
+    """Band cells, operations and bytes of one pair-HMM forward call, and
+    its SFU floor in ms (``sfu_ms``)."""
     n = np.asarray(n, np.int64)
     m = np.asarray(m, np.int64)
     P = len(n)
     cells = int(np.minimum(Dmax, n + m + 1).sum()) * W
     nbytes = P * (LQG + LTG) + 8 * P + 4 * P
     return {"cells": cells, "ops": cells * OPS_PER_CELL["pairhmm_forward"],
-            "bytes": nbytes, "peak": FP32_PEAK}
+            "bytes": nbytes, "peak": FP32_PEAK,
+            "sfu_ms": 1e3 * cells * SFU_PER_CELL["pairhmm_forward"]
+            / SFU_PEAK}
 
 
 def wavefront_work(n, m, *, Dmax: int, W: int, LQG: int, LTG: int,

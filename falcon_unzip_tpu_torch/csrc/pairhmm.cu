@@ -1,48 +1,55 @@
 // Banded pair-HMM forward for Hopper (sm_90a).
 //
 // pairhmm_forward_kernel replaces the TPU kernel
-// falcon_unzip_tpu/ops/pallas_pairhmm.py::_kernel (launched by
-// _pallas_forward).  It computes the same banded 3-state M/I/D log-space
-// forward as falcon_unzip_tpu/ops/pairhmm.py::forward_core: the band
-// schedule lo(d) = max(0, (d+1)/2 - W/2) of the edit-distance wavefront,
-// float32 state, NEG = -1e30 for "no path", the reference's logaddexp
-// nesting
+// falcon_unzip_tpu/ops/pallas_pairhmm.py::_kernel (:41, launched by
+// _pallas_forward's pallas_call, :201).  It computes the same banded
+// 3-state M/I/D log-space forward as falcon_unzip_tpu/ops/pairhmm.py::
+// forward_core: the band schedule lo(d) = max(0, (d+1)/2 - W/2) of the
+// edit-distance wavefront, float32 state, NEG = -1e30 for "no path", the
+// reference's recurrence
 //   M = em + lae(lae(Md + tMM, Id + tIM), Dd + tDM)
 //   I = em_ins + lae(Mu + tMI, Iu + tII)
 //   D = lae(Ml + tMD, Dl + tDD)
-// and its masks (valid, origin, can_m/i/d).  The (n, m) corner's M, I
-// and D are captured with selects on the antidiagonal d = n + m and
-// combined once after the loop, then reduced over the band with a max,
-// as pallas_pairhmm.py:154-157,182-183 do.  logaddexp is written
-// max + log1p(exp(-|a - b|)), so NEG + NEG stays NEG.
+// (d: the cell (i-1, j-1), u: (i-1, j), l: (i, j-1)), its masks (valid,
+// origin, i >= 1, j >= 1), the result lae(lae(M, I), D) at the (n, m)
+// corner, and exactly NEG where the corner leaves the band or lies past
+// Dmax - 1.
 //
-//   Layout: one warp per (read, template) pair; lane L holds the C = W/32
-//   contiguous band cells w = L*C .. L*C + C-1 of antidiagonals d-1 and
-//   d-2 for each of M, I and D in registers.  The +-1 band shift (lo(d) -
-//   lo(d-1) in {0, 1}) crosses lanes with one __shfl_up_sync /
-//   __shfl_down_sync of the edge cell, NEG-filled at w = 0 and w = W-1.
-//   Bases are int8 guarded rows from prepare_batch (every read lies
-//   inside LQG / LTG; the wrapper checks the bounds) and stay in L1.  The
-//   ten log-params are by-value arguments.  The loop stops at d = n + m:
-//   nothing after the corner is read.
-//
-//   What bounds it: each antidiagonal depends on the two before it, so a
-//   pair is latency-bound on its chain of three logaddexps (exp + log1p
-//   on the SFU) and shuffles; throughput comes from many pairs (warps) in
-//   flight.  The state never leaves registers; device-memory traffic is
-//   the base reads and one float per pair.
+//   Layout: one block a pair, NW warps, C = W / (32 NW) neighbouring band
+//   cells a lane, the pair's values on antidiagonal d-1 in registers.  The
+//   guarded rows are staged in shared memory once (ACGT kept, every other
+//   code mapped to one that never matches), unless they are too long, and
+//   each lane keeps its cells' two bases in registers: one of the two
+//   windows slides by one base a step.
+//   * Push, not pull: each of I, D and M has exactly one predecessor cell
+//     ((i-1, j), (i, j-1), (i-1, j-1)), so a cell computes from its own
+//     values the I of the cell below, the D of the cell to its right and
+//     the logaddexp part of the M diagonally below, and hands them on.  The
+//     same operations on the same values as the pull form; but only one
+//     value a step crosses to a neighbour lane in the band's steady state
+//     (I up or D down), after the logaddexp instead of before it.
+//   * The band shifts are constants of each phase: s1 = lo(d) - lo(d-1)
+//     and s2 = lo(d) - lo(d-2) are (0, 0) up to d = W (lo = 0) and
+//     (d & 1, 1) from d = W + 1 on.  Within a warp a shift
+//     is one shuffle; across warps one shared-memory word a warp and step,
+//     double-buffered by step parity, with one barrier a step.
+//   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
+//     corner is read once after the loop, from the lane holding w = n -
+//     lo(n + m).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStageLimit = 96 * 1024;  // rows longer than this stay global
 
 struct HmmParams {
   float em_match, em_mis, em_ins, tMM, tMI, tMD, tIM, tII, tDM, tDD;
@@ -57,124 +64,181 @@ __device__ __forceinline__ float lae(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
 }
 
-template <int C>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__device__ __forceinline__ float lae3(float a, float b, float c) {
+  return lae(lae(a, b), c);
+}
+
+// A base for the match test: A C G T stay, every other code becomes
+// `other` (0xff in the query, 0xfe in the target: they never match).
+__device__ __forceinline__ int base_code(int b, int other) {
+  return (b & 0xff) > 3 ? other : (b & 0xff);
+}
+
+template <int C, int NW, bool kStaged>
+__global__ void __launch_bounds__(32 * NW)
 pairhmm_forward_kernel(const int8_t* __restrict__ qg,
                        const int8_t* __restrict__ trg,
                        const int32_t* __restrict__ n_arr,
-                       const int32_t* __restrict__ m_arr, int P, int LQG,
-                       int LTG, int Lt, int G, int Dmax, HmmParams hp,
+                       const int32_t* __restrict__ m_arr, int LQG, int LTG,
+                       int Lt, int G, int Dmax, HmmParams hp,
                        float* __restrict__ ll) {
-  constexpr int W = 32 * C;
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= P) return;  // whole warp leaves together
+  constexpr int W = 32 * C * NW;
+  constexpr int T = 32 * NW;
+  extern __shared__ uint8_t s_rows[];
+  // a warp's values for its neighbours, by step parity: I and M going up
+  // (from lane 31), D going down (from lane 0)
+  __shared__ float s_edge[2][NW][3];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p = blockIdx.x;
   const int n = n_arr[p];
   const int m = m_arr[p];
-  const int8_t* q = qg + static_cast<size_t>(p) * LQG;
-  const int8_t* t = trg + static_cast<size_t>(p) * LTG;
-  const int w0 = lane * C;
+  const int8_t* gq = qg + static_cast<size_t>(p) * LQG;
+  const int8_t* gt = trg + static_cast<size_t>(p) * LTG;
+  uint8_t* sq = s_rows;
+  uint8_t* st = s_rows + ((LQG + 15) & ~15);
+  if (kStaged) {
+    for (int k = tid; k < LQG; k += T) sq[k] = base_code(gq[k], 0xff);
+    for (int k = tid; k < LTG; k += T) st[k] = base_code(gt[k], 0xfe);
+    __syncthreads();
+  }
+  auto qbase = [&](int k) -> int {
+    return kStaged ? sq[k] : base_code(__ldg(gq + k), 0xff);
+  };
+  auto tbase = [&](int k) -> int {
+    return kStaged ? st[k] : base_code(__ldg(gt + k), 0xfe);
+  };
 
-  float M1[C], I1[C], D1[C], M2[C], I2[C], D2[C];
+  const int w0 = tid * C;         // band index of the lane's first cell
+  const int t_top = G + Lt;       // target index of band cell 0 at d = 0
+  const int d_end = min(Dmax - 1, n + m);
+
+  float M[C], I[C], D[C];         // antidiagonal d-1 (start: all NEG)
+  float Md[C];                    // M's logaddexp part for d, from d-2
+  int qb[C], tb[C];               // the cells' bases (tb: d-1's window)
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    M1[c] = I1[c] = D1[c] = kNeg;
-    M2[c] = I2[c] = D2[c] = kNeg;
+    M[c] = I[c] = D[c] = Md[c] = kNeg;
+    qb[c] = qbase(w0 + c);
+    // the window of "d = -1" one to the right: tb[c] = t at d = 0 for c >= 1
+    tb[c] = c + 1 < C ? tbase(t_top + w0 + c + 1) : 0;
   }
-  // corner (n, m) state, captured on d == n + m
-  float cM = kNeg, cI = kNeg, cD = kNeg;
 
-  const int d_end = min(Dmax - 1, n + m);
-  for (int d = 0; d <= d_end; ++d) {
-    const int lo = band_lo(d, W);
-    const int s1 = lo - band_lo(d - 1, W);
-    const int s2 = lo - band_lo(d - 2, W);
-    float m1_prev = __shfl_up_sync(kFull, M1[C - 1], 1);
-    float i1_prev = __shfl_up_sync(kFull, I1[C - 1], 1);
-    float m1_next = __shfl_down_sync(kFull, M1[0], 1);
-    float d1_next = __shfl_down_sync(kFull, D1[0], 1);
-    float m2_prev = __shfl_up_sync(kFull, M2[C - 1], 1);
-    float i2_prev = __shfl_up_sync(kFull, I2[C - 1], 1);
-    float d2_prev = __shfl_up_sync(kFull, D2[C - 1], 1);
-    if (lane == 0) {
-      m1_prev = i1_prev = kNeg;
-      m2_prev = i2_prev = d2_prev = kNeg;
-    }
-    if (lane == 31) m1_next = d1_next = kNeg;
-    const int8_t* qrow = q + lo + w0;
-    const int8_t* trow = t + (G + Lt - d + lo + w0);
-    const bool hit = d == n + m;  // warp-uniform
-    float M[C], I[C], D[C];
+  // One antidiagonal d with shifts s1 = lo(d) - lo(d-1) and s2 of d + 1
+  // (where the M part handed on now lands), masks if MASK.
+  auto step = [&](int d, int lo, auto s1_tag, auto s2n_tag, auto mask_tag) {
+    constexpr int S1 = decltype(s1_tag)::value;
+    constexpr int S2N = decltype(s2n_tag)::value;
+    constexpr bool MASK = decltype(mask_tag)::value;
+    float Io[C], Do[C], Mo[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      // d-1 cell w-1 / w+1 and d-2 cell w-1 (NEG past the band's ends)
-      const float m1m = c == 0 ? m1_prev : M1[c - 1];
-      const float i1m = c == 0 ? i1_prev : I1[c - 1];
-      const float m1p = c == C - 1 ? m1_next : M1[c + 1];
-      const float d1p = c == C - 1 ? d1_next : D1[c + 1];
-      const float m2m = c == 0 ? m2_prev : M2[c - 1];
-      const float i2m = c == 0 ? i2_prev : I2[c - 1];
-      const float d2m = c == 0 ? d2_prev : D2[c - 1];
-      // up (i-1, j): d-1 at w + s1 - 1; left (i, j-1): d-1 at w + s1;
-      // diag (i-1, j-1): d-2 at w + s2 - 1
-      const float Mu = s1 == 0 ? m1m : M1[c];
-      const float Iu = s1 == 0 ? i1m : I1[c];
-      const float Ml = s1 == 0 ? M1[c] : m1p;
-      const float Dl = s1 == 0 ? D1[c] : d1p;
-      const float Md = s2 == 0 ? m2m : M2[c];
-      const float Id = s2 == 0 ? i2m : I2[c];
-      const float Dd = s2 == 0 ? d2m : D2[c];
-      const int i = lo + w0 + c;
-      const int j = d - i;
-      const int qi = __ldg(qrow + c);
-      const int tj = __ldg(trow + c);
-      const float em = (qi == tj && qi < 4) ? hp.em_match : hp.em_mis;
-      float vm = em + lae(lae(Md + hp.tMM, Id + hp.tIM), Dd + hp.tDM);
-      float vi = hp.em_ins + lae(Mu + hp.tMI, Iu + hp.tII);
-      float vd = lae(Ml + hp.tMD, Dl + hp.tDD);
-      const bool valid = i >= 0 && i <= n && j >= 0 && j <= m;
-      vm = (valid && i >= 1 && j >= 1) ? vm : kNeg;
-      if (i == 0 && j == 0) vm = 0.0f;
-      vi = (valid && i >= 1) ? vi : kNeg;
-      vd = (valid && j >= 1) ? vd : kNeg;
-      if (hit && valid && i == n) {  // j == m follows from d == n + m
-        cM = vm;
-        cI = vi;
-        cD = vd;
+      Io[c] = hp.em_ins + lae(M[c] + hp.tMI, I[c] + hp.tII);
+      Do[c] = lae(M[c] + hp.tMD, D[c] + hp.tDD);
+      Mo[c] = lae3(M[c] + hp.tMM, I[c] + hp.tIM, D[c] + hp.tDM);
+    }
+    // the neighbour lanes' values: I (s1 = 0) and M (s2 = 0) from the cell
+    // below in band order, D (s1 = 1) from the cell above
+    float* e = s_edge[d & 1][warp];
+    float uI = 0.0f, uM = 0.0f, dD = 0.0f;
+    if (S1 == 0) {
+      uI = __shfl_up_sync(kFull, Io[C - 1], 1);
+      if (NW > 1 && lane == 31) e[0] = Io[C - 1];
+    } else {
+      dD = __shfl_down_sync(kFull, Do[0], 1);
+      if (NW > 1 && lane == 0) e[2] = Do[0];
+    }
+    if (S2N == 0) {
+      uM = __shfl_up_sync(kFull, Mo[C - 1], 1);
+      if (NW > 1 && lane == 31) e[1] = Mo[C - 1];
+    }
+    if (NW > 1) __syncthreads();
+    const float* eu = s_edge[d & 1][warp > 0 ? warp - 1 : 0];
+    const float* ed = s_edge[d & 1][warp < NW - 1 ? warp + 1 : 0];
+    if (S1 == 0 && lane == 0) uI = warp > 0 ? eu[0] : kNeg;
+    if (S2N == 0 && lane == 0) uM = warp > 0 ? eu[1] : kNeg;
+    if (S1 == 1 && lane == 31) dD = warp < NW - 1 ? ed[2] : kNeg;
+    // the bases of d: the query window slides when lo grows, else the
+    // target's
+    if (S1 == 1) {
+#pragma unroll
+      for (int c = 0; c + 1 < C; ++c) qb[c] = qb[c + 1];
+      qb[C - 1] = qbase(lo + w0 + C - 1);
+    } else {
+#pragma unroll
+      for (int c = C - 1; c > 0; --c) tb[c] = tb[c - 1];
+      tb[0] = tbase(t_top - d + lo + w0);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float em = qb[c] == tb[c] ? hp.em_match : hp.em_mis;
+      float vm = em + Md[c];
+      float vi = S1 == 0 ? (c == 0 ? uI : Io[c - 1]) : Io[c];
+      float vd = S1 == 0 ? Do[c] : (c == C - 1 ? dD : Do[c + 1]);
+      if (MASK) {
+        const int i = lo + w0 + c;
+        const int j = d - i;
+        const bool valid = i <= n && j >= 0 && j <= m;
+        vm = (valid && i >= 1 && j >= 1) ? vm
+                                         : (i == 0 && j == 0 ? 0.0f : kNeg);
+        vi = (valid && i >= 1) ? vi : kNeg;
+        vd = (valid && j >= 1) ? vd : kNeg;
       }
       M[c] = vm;
       I[c] = vi;
       D[c] = vd;
+      Md[c] = S2N == 0 ? (c == 0 ? uM : Mo[c - 1]) : Mo[c];
     }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      M2[c] = M1[c];
-      I2[c] = I1[c];
-      D2[c] = D1[c];
-      M1[c] = M[c];
-      I1[c] = I[c];
-      D1[c] = D[c];
-    }
+  };
+
+  using Z = std::integral_constant<int, 0>;
+  using O = std::integral_constant<int, 1>;
+  using Masked = std::true_type;
+  int d = 0;
+  for (; d <= min(d_end, W - 1); ++d) step(d, 0, Z{}, Z{}, Masked{});
+  if (d <= d_end) step(d++, 0, Z{}, O{}, Masked{});       // d = W
+  if (d <= d_end) step(d++, 1, O{}, O{}, Masked{});       // d = W + 1
+  for (; d <= d_end; ++d) {
+    const int lo = band_lo(d, W);
+    if (d & 1)
+      step(d, lo, O{}, O{}, Masked{});
+    else
+      step(d, lo, Z{}, O{}, Masked{});
   }
 
-  // combine the captured corner once; cells that never held it are NEG
-  float v = lae(lae(cM, cI), cD);
+  // the corner (n, m), once: lae(lae(M, I), D) of the lane holding it
+  const int wc = n - band_lo(d_end, W);
+  const bool hit = d_end == n + m && wc >= 0 && wc < W;
+  float v = kNeg;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  if (lane == 0) ll[p] = v;
+  for (int c = 0; c < C; ++c)
+    if (w0 + c == wc) v = lae(lae(M[c], I[c]), D[c]);
+  if (tid == (hit ? wc / C : 0)) ll[p] = hit ? v : kNeg;
 }
 
-template <int C>
+template <int C, int NW>
 cudaError_t launch_forward(const int8_t* qg, const int8_t* trg,
                            const int32_t* n, const int32_t* m, int P,
                            int LQG, int LTG, int Lt, int G, int Dmax,
                            const HmmParams& hp, float* ll,
                            cudaStream_t stream) {
-  const dim3 grid((P + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-  pairhmm_forward_kernel<C><<<grid, block, 0, stream>>>(
-      qg, trg, n, m, P, LQG, LTG, Lt, G, Dmax, hp, ll);
+  const size_t rows = ((LQG + 15) & ~15) + static_cast<size_t>(LTG);
+  if (rows <= kStageLimit) {
+    auto* k = pairhmm_forward_kernel<C, NW, true>;
+    if (rows > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(rows));
+      if (e != cudaSuccess) return e;
+    }
+    k<<<P, 32 * NW, rows, stream>>>(qg, trg, n, m, LQG, LTG, Lt, G, Dmax,
+                                    hp, ll);
+  } else {
+    pairhmm_forward_kernel<C, NW, false><<<P, 32 * NW, 0, stream>>>(
+        qg, trg, n, m, LQG, LTG, Lt, G, Dmax, hp, ll);
+  }
   return cudaGetLastError();
 }
 
@@ -197,20 +261,20 @@ extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
   auto s = static_cast<cudaStream_t>(stream);
   switch (W) {
     case 32:
-      return launch_forward<1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G, Dmax,
-                               hp, out, s);
+      return launch_forward<1, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
     case 64:
-      return launch_forward<2>(q8, t8, n32, m32, P, LQG, LTG, Lt, G, Dmax,
-                               hp, out, s);
+      return launch_forward<1, 2>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
     case 128:
-      return launch_forward<4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G, Dmax,
-                               hp, out, s);
+      return launch_forward<1, 4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
     case 256:
-      return launch_forward<8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G, Dmax,
-                               hp, out, s);
+      return launch_forward<1, 8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
     case 512:
-      return launch_forward<16>(q8, t8, n32, m32, P, LQG, LTG, Lt, G, Dmax,
-                                hp, out, s);
+      return launch_forward<2, 8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,6 +21,7 @@ from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import banded_align as ba
 from falcon_unzip_tpu_torch.seq import SeqBatch
 from falcon_unzip_tpu_torch.utils import arrow_batches as ab
+from falcon_unzip_tpu_torch.utils import hmm_batches as hb
 from falcon_unzip_tpu_torch.utils.simulate import mutate_read, random_genome
 
 pytestmark = pytest.mark.gpu
@@ -278,6 +279,46 @@ def test_pairhmm_kernel_matches_plain_on_card(cuda, W):
     torch.cuda.synchronize()
     _close(k, p)
     assert _kernels.PAIRHMM.launches == 1
+
+
+def _pairhmm_matches_plain(batch, W, dev):
+    """The forward kernel on a batch of ``utils/hmm_batches.py`` equals the
+    plain version within the float bar, the out-of-band pairs exactly NEG
+    on both sides; one launch."""
+    from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    args, kw = hb.to_device(batch, W, ph.params_vector(), dev)
+    _kernels.reset_counts()
+    k = ph.pairhmm_forward(*args, **kw)
+    assert _kernels.PAIRHMM.launches == 1
+    p = ph.pairhmm_forward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _close(k, p)
+    out = p < -1e29
+    assert bool((k[out] == -1e30).all()) and bool((p[out] == -1e30).all())
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("kind", hb.EDGE_KINDS)
+def test_pairhmm_kernel_edge_batches_on_card(cuda, kind, W):
+    """Every build of the forward (one a band width) on the edge batches:
+    corners out of the band, n = 0 or m = 0, n + m ending around the
+    prologue's end (W - 1 .. W + 4), a cut schedule of odd length, corners
+    at the band's edges, long and short pairs mixed, P = 1 and P = 37."""
+    _pairhmm_matches_plain(hb.edge_batch(kind, W), W, cuda)
+
+
+@pytest.mark.parametrize("W", [32, 128, 512])
+def test_pairhmm_kernel_rows_too_long_for_shared_memory_on_card(cuda, W):
+    """Guarded rows past the kernel's shared-memory stage (96 KB): the
+    builds that read the bases from device memory, on short and long
+    pairs in 50 kb rows."""
+    rng = np.random.default_rng(W)
+    L = 50_000
+    specs = [(0, 0), (5, 9), (W + 3, W), (700, 690), (2 * W, 2 * W + 40),
+             (400, 395)]
+    q, t, n, m = hb.pack(rng, specs, Lq=L, Lt=L)
+    batch = {"q": q, "t": t, "n": n, "m": m, "Dmax": 2 * L + 1}
+    _pairhmm_matches_plain(batch, W, cuda)
 
 
 def _arrow_matches_plain(args, C):

@@ -21,6 +21,7 @@ from falcon_unzip_tpu.seq import SeqBatch
 from falcon_unzip_tpu.utils.simulate import mutate_read, random_genome
 from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import pairhmm as port_hmm
+from falcon_unzip_tpu_torch.utils import hmm_batches as hb
 
 # one intra-op thread: the suite runs several pytest workers on one host,
 # and a torch CPU thread pool in each would oversubscribe the cores
@@ -95,3 +96,29 @@ def test_kernel_wrapper_refuses_cpu_tensors(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_hmm.PairHMMScorer(W=64, device="cuda")
+
+
+@pytest.mark.parametrize("W", [32, 128])
+@pytest.mark.parametrize("kind", hb.EDGE_KINDS)
+def test_plain_forward_edge_batches_match_forward_core(kind, W):
+    """The edge batches the card kernel is held to (utils/hmm_batches.py):
+    corners out of the band, n = 0 or m = 0, n + m ending around the
+    prologue's end, a cut schedule, corners at the band's edges, long and
+    short pairs mixed, P = 1 and P = 37; the plain forward against the JAX
+    package's ``pairhmm_forward_batch`` on the same cut schedule."""
+    b = hb.edge_batch(kind, W)
+    pvec = port_hmm.params_vector()
+    args, kw = hb.to_device(b, W, pvec, "cpu")
+    qg, trg, n, m, lo, _ = args
+    want = np.asarray(ref_hmm.pairhmm_forward_batch(
+        jnp.asarray(qg.numpy()), jnp.asarray(trg.numpy()),
+        jnp.asarray(b["n"]), jnp.asarray(b["m"]), jnp.asarray(lo),
+        jnp.asarray(pvec), **kw))
+    got = port_hmm.pairhmm_forward_plain(*args, **kw).numpy()
+    _close(got, want)
+    # every kind but the full-band ones has pairs on both sides of the bar
+    out = want < -1e29
+    n_, m_ = b["n"].astype(int), b["m"].astype(int)
+    in_band = np.array([0 <= hb.corner_w(a, c, W) < W and a + c < b["Dmax"]
+                        for a, c in zip(n_, m_)])
+    assert np.array_equal(~out, in_band)
