@@ -33,6 +33,16 @@
 //     (d & 1, 1) from d = W + 1 on.  Within a warp a shift
 //     is one shuffle; across warps one shared-memory word a warp and step,
 //     double-buffered by step parity, with one barrier a step.
+//   * No masks from d = W + 2 on (the steady phase, two steps at a time).
+//     There every band cell has i >= lo(d) >= 1 and j >= d/2 - W/2 + 1 >=
+//     1, so the origin, row-0 and column-0 masks are false.  The valid
+//     mask (i <= n, j <= m) is not needed either: a cell past row n or
+//     column m never feeds the (n, m) corner, since M reads (i-1, j-1), I
+//     (i-1, j) and D (i, j-1), all with i' <= i and j' <= j; so such cells
+//     feed only cells that are themselves past row n or column m.  Their
+//     values are log-probabilities of paths over the guard bases, finite
+//     and <= 0, and cannot overflow.  The corner therefore comes out of the
+//     same operations on the same inputs with or without those masks.
 //   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
 //     corner is read once after the loop, from the lane holding w = n -
 //     lo(n + m).
@@ -196,17 +206,19 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   using Z = std::integral_constant<int, 0>;
   using O = std::integral_constant<int, 1>;
   using Masked = std::true_type;
+  using Unmasked = std::false_type;
+  // the prologue (lo = 0 up to d = W, then d = W + 1), masked
   int d = 0;
   for (; d <= min(d_end, W - 1); ++d) step(d, 0, Z{}, Z{}, Masked{});
   if (d <= d_end) step(d++, 0, Z{}, O{}, Masked{});       // d = W
   if (d <= d_end) step(d++, 1, O{}, O{}, Masked{});       // d = W + 1
-  for (; d <= d_end; ++d) {
-    const int lo = band_lo(d, W);
-    if (d & 1)
-      step(d, lo, O{}, O{}, Masked{});
-    else
-      step(d, lo, Z{}, O{}, Masked{});
+  // the steady phase from d = W + 2 (even), two steps at a time, unmasked
+  for (; d + 1 <= d_end; d += 2) {
+    const int lo = (d + 1) / 2 - W / 2;
+    step(d, lo, Z{}, O{}, Unmasked{});
+    step(d + 1, lo + 1, O{}, O{}, Unmasked{});
   }
+  if (d <= d_end) step(d, (d + 1) / 2 - W / 2, Z{}, O{}, Unmasked{});
 
   // the corner (n, m), once: lae(lae(M, I), D) of the lane holding it
   const int wc = n - band_lo(d_end, W);
