@@ -43,6 +43,10 @@
 //     values are log-probabilities of paths over the guard bases, finite
 //     and <= 0, and cannot overflow.  The corner therefore comes out of the
 //     same operations on the same inputs with or without those masks.
+//   * The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx):
+//     the params are scaled by log2(e) as they are read and the result by
+//     ln(2) as it is stored; M's three terms in one max + lg2(1 + ex2 +
+//     ex2), 7 SFU operations a cell.
 //   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
 //     corner is read once after the loop, from the lane holding w = n -
 //     lo(n + m).
@@ -60,6 +64,8 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStageLimit = 96 * 1024;  // rows longer than this stay global
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct HmmParams {
   float em_match, em_mis, em_ins, tMM, tMI, tMD, tIM, tII, tDM, tDD;
@@ -70,12 +76,32 @@ __device__ __forceinline__ int band_lo(int d, int W) {
   return x > 0 ? x : 0;
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// logaddexp of two and of three terms in log2 units, on the SFU:
+// max + lg2(1 + ex2(-|a - b|)), and for three terms max + lg2(1 + ex2 +
+// ex2) of the other two (3 SFU operations, not 4).  NEG + NEG stays NEG:
+// ex2(0) = 1 and NEG + lg2(2) == NEG in float32.
 __device__ __forceinline__ float lae(float a, float b) {
-  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+  return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
 }
 
 __device__ __forceinline__ float lae3(float a, float b, float c) {
-  return lae(lae(a, b), c);
+  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
+  const float hi = fmaxf(hi_ab, c);
+  const float lo = fminf(lo_ab, c);
+  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
+  return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
 }
 
 // A base for the match test: A C G T stay, every other code becomes
@@ -90,7 +116,7 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
                        const int8_t* __restrict__ trg,
                        const int32_t* __restrict__ n_arr,
                        const int32_t* __restrict__ m_arr, int LQG, int LTG,
-                       int Lt, int G, int Dmax, HmmParams hp,
+                       int Lt, int G, int Dmax, HmmParams hp_ln,
                        float* __restrict__ ll) {
   constexpr int W = 32 * C * NW;
   constexpr int T = 32 * NW;
@@ -99,6 +125,12 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   // (from lane 31), D going down (from lane 0)
   __shared__ float s_edge[2][NW][3];
 
+  // the params in log2 units
+  const HmmParams hp{hp_ln.em_match * kLog2e, hp_ln.em_mis * kLog2e,
+                     hp_ln.em_ins * kLog2e,   hp_ln.tMM * kLog2e,
+                     hp_ln.tMI * kLog2e,      hp_ln.tMD * kLog2e,
+                     hp_ln.tIM * kLog2e,      hp_ln.tII * kLog2e,
+                     hp_ln.tDM * kLog2e,      hp_ln.tDD * kLog2e};
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -220,14 +252,15 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   }
   if (d <= d_end) step(d, (d + 1) / 2 - W / 2, Z{}, O{}, Unmasked{});
 
-  // the corner (n, m), once: lae(lae(M, I), D) of the lane holding it
+  // the corner (n, m), once: lae(lae(M, I), D) of the lane holding it, in
+  // natural-log units (NEG stays NEG)
   const int wc = n - band_lo(d_end, W);
   const bool hit = d_end == n + m && wc >= 0 && wc < W;
   float v = kNeg;
 #pragma unroll
   for (int c = 0; c < C; ++c)
     if (w0 + c == wc) v = lae(lae(M[c], I[c]), D[c]);
-  if (tid == (hit ? wc / C : 0)) ll[p] = hit ? v : kNeg;
+  if (tid == (hit ? wc / C : 0)) ll[p] = hit && v > -1e29f ? v * kLn2 : kNeg;
 }
 
 template <int C, int NW>
