@@ -323,6 +323,7 @@ def phase_parity_hmm(torch, np) -> dict:
     batches of utils/hmm_batches.py in every build."""
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import banded_align as ba
+    from falcon_unzip_tpu_torch.ops import _kernels
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
     from falcon_unzip_tpu_torch.utils import hmm_batches as hb
     dev = torch.device("cuda")
@@ -360,31 +361,36 @@ def phase_parity_hmm(torch, np) -> dict:
               f"{rel:.3g} (bar 1e-3) | kernel {ms:.3f} ms (plain "
               f"{plain_ms:.1f} ms) | bound {bound:.4f} ms, SFU floor "
               f"{work['sfu_ms']:.4f} ms", flush=True)
-    # the edge batches in every build (one a band width), then rows too
+    # the edge batches in every build (a band width, and at W = 128 both
+    # cells a lane: the batches repeated to P = 600 for two), then rows too
     # long for the shared-memory stage (the builds reading device memory)
     worst = 0.0
-    batches = [(W, kind, hb.edge_batch(kind, W)) for W in (32, 64, 128, 256,
-                                                          512)
-               for kind in hb.EDGE_KINDS]
+    builds = ((32, None, 1), (64, None, 2), (128, None, 1), (128, 600, 2),
+              (256, None, 2), (512, None, 2))
     L = 50_000
-    q, t, n, m = hb.pack(rng, [(0, 0), (5, 9), (700, 690), (400, 395)],
-                         Lq=L, Lt=L)
-    batches += [(W, "rows_50kb", {"q": q, "t": t, "n": n, "m": m,
-                                  "Dmax": 2 * L + 1}) for W in (32, 128, 512)]
-    for W, kind, b in batches:
-        args, kw = hb.to_device(b, W, pvec, dev)
-        k = ph.pairhmm_forward(*args, **kw)
-        p = ph.pairhmm_forward_plain(*args, **kw)
-        rel = hb.max_rel_err(k, p)
-        out = p < -1e29
-        if not rel <= 1e-3 or not bool((k[out] == -1e30).all()):
-            _fail(f"pairhmm edge batch {kind} W={W}: rel err {rel} over the "
-                  "bar, or an out-of-band pair not exactly NEG")
-        worst = max(worst, rel)
+    for W, Pb, cells in builds:
+        specs = [(0, 0), (5, 9), (700, 690), (W + 3, W), (400, 395)]
+        q, t, n, m = hb.pack(rng, (specs * (Pb or 5))[: Pb or 5], Lq=L, Lt=L)
+        for kind, b in ([(kd, hb.edge_batch(kd, W, P=Pb))
+                         for kd in hb.EDGE_KINDS]
+                        + [("rows_50kb", {"q": q, "t": t, "n": n, "m": m,
+                                          "Dmax": 2 * L + 1})]):
+            if _kernels.pairhmm_cells(W, len(b["n"])) != cells:
+                _fail(f"pairhmm W={W} P={len(b['n'])}: not {cells} cells a "
+                      "lane")
+            args, kw = hb.to_device(b, W, pvec, dev)
+            k = ph.pairhmm_forward(*args, **kw)
+            p = ph.pairhmm_forward_plain(*args, **kw)
+            rel = hb.max_rel_err(k, p)
+            if not rel <= 1e-3 or not bool((k[p < -1e29] == -1e30).all()):
+                _fail(f"pairhmm edge batch {kind} W={W} P={len(b['n'])}: rel "
+                      f"err {rel} over the bar, or an out-of-band pair not "
+                      "exactly NEG")
+            worst = max(worst, rel)
     print(f"[3 parity] pairhmm_forward edge batches {', '.join(hb.EDGE_KINDS)}"
-          f" at W = 32/64/128/256/512 and 50 kb rows at W = 32/128/512 | max "
-          f"rel err {worst:.3g} (bar 1e-3), out-of-band pairs exactly NEG",
-          flush=True)
+          f" and 50 kb rows in every build (W = 32/64/128/256/512; W = 128 "
+          f"also at P = 600, two cells a lane) | max rel err {worst:.3g} (bar "
+          "1e-3), out-of-band pairs exactly NEG", flush=True)
     return res
 
 

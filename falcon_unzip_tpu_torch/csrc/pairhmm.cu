@@ -168,9 +168,12 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
     tb[c] = c + 1 < C ? tbase(t_top + w0 + c + 1) : 0;
   }
 
-  // One antidiagonal d with shifts s1 = lo(d) - lo(d-1) and s2 of d + 1
-  // (where the M part handed on now lands), masks if MASK.
-  auto step = [&](int d, int lo, auto s1_tag, auto s2n_tag, auto mask_tag) {
+  const int wu = warp > 0 ? warp - 1 : 0;        // the neighbour warps
+  const int wd = warp < NW - 1 ? warp + 1 : 0;
+  // One antidiagonal d (of parity par) with shifts s1 = lo(d) - lo(d-1)
+  // and s2 of d + 1 (where the M part handed on now lands), masks if MASK.
+  auto step = [&](int d, int par, int lo, auto s1_tag, auto s2n_tag,
+                  auto mask_tag) {
     constexpr int S1 = decltype(s1_tag)::value;
     constexpr int S2N = decltype(s2n_tag)::value;
     constexpr bool MASK = decltype(mask_tag)::value;
@@ -183,25 +186,22 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
     }
     // the neighbour lanes' values: I (s1 = 0) and M (s2 = 0) from the cell
     // below in band order, D (s1 = 1) from the cell above
-    float* e = s_edge[d & 1][warp];
     float uI = 0.0f, uM = 0.0f, dD = 0.0f;
     if (S1 == 0) {
       uI = __shfl_up_sync(kFull, Io[C - 1], 1);
-      if (NW > 1 && lane == 31) e[0] = Io[C - 1];
+      if (NW > 1 && lane == 31) s_edge[par][warp][0] = Io[C - 1];
     } else {
       dD = __shfl_down_sync(kFull, Do[0], 1);
-      if (NW > 1 && lane == 0) e[2] = Do[0];
+      if (NW > 1 && lane == 0) s_edge[par][warp][2] = Do[0];
     }
     if (S2N == 0) {
       uM = __shfl_up_sync(kFull, Mo[C - 1], 1);
-      if (NW > 1 && lane == 31) e[1] = Mo[C - 1];
+      if (NW > 1 && lane == 31) s_edge[par][warp][1] = Mo[C - 1];
     }
     if (NW > 1) __syncthreads();
-    const float* eu = s_edge[d & 1][warp > 0 ? warp - 1 : 0];
-    const float* ed = s_edge[d & 1][warp < NW - 1 ? warp + 1 : 0];
-    if (S1 == 0 && lane == 0) uI = warp > 0 ? eu[0] : kNeg;
-    if (S2N == 0 && lane == 0) uM = warp > 0 ? eu[1] : kNeg;
-    if (S1 == 1 && lane == 31) dD = warp < NW - 1 ? ed[2] : kNeg;
+    if (S1 == 0 && lane == 0) uI = warp > 0 ? s_edge[par][wu][0] : kNeg;
+    if (S2N == 0 && lane == 0) uM = warp > 0 ? s_edge[par][wu][1] : kNeg;
+    if (S1 == 1 && lane == 31) dD = warp < NW - 1 ? s_edge[par][wd][2] : kNeg;
     // the bases of d: the query window slides when lo grows, else the
     // target's
     if (S1 == 1) {
@@ -241,16 +241,16 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   using Unmasked = std::false_type;
   // the prologue (lo = 0 up to d = W, then d = W + 1), masked
   int d = 0;
-  for (; d <= min(d_end, W - 1); ++d) step(d, 0, Z{}, Z{}, Masked{});
-  if (d <= d_end) step(d++, 0, Z{}, O{}, Masked{});       // d = W
-  if (d <= d_end) step(d++, 1, O{}, O{}, Masked{});       // d = W + 1
+  for (; d <= min(d_end, W - 1); ++d) step(d, d & 1, 0, Z{}, Z{}, Masked{});
+  if (d <= d_end) step(d++, 0, 0, Z{}, O{}, Masked{});      // d = W
+  if (d <= d_end) step(d++, 1, 1, O{}, O{}, Masked{});      // d = W + 1
   // the steady phase from d = W + 2 (even), two steps at a time, unmasked
   for (; d + 1 <= d_end; d += 2) {
     const int lo = (d + 1) / 2 - W / 2;
-    step(d, lo, Z{}, O{}, Unmasked{});
-    step(d + 1, lo + 1, O{}, O{}, Unmasked{});
+    step(d, 0, lo, Z{}, O{}, Unmasked{});
+    step(d + 1, 1, lo + 1, O{}, O{}, Unmasked{});
   }
-  if (d <= d_end) step(d, (d + 1) / 2 - W / 2, Z{}, O{}, Unmasked{});
+  if (d <= d_end) step(d, 0, (d + 1) / 2 - W / 2, Z{}, O{}, Unmasked{});
 
   // the corner (n, m), once: lae(lae(M, I), D) of the lane holding it, in
   // natural-log units (NEG stays NEG)
@@ -287,7 +287,43 @@ cudaError_t launch_forward(const int8_t* qg, const int8_t* trg,
   return cudaGetLastError();
 }
 
+// The SMs of each device, read once.
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+// Cells a lane of the launch for band width W and a batch of P pairs on
+// the current device (W / (32 cells) warps a block): W = 128 takes one (4
+// warps) while the batch's warps fit four a scheduler (P <= 528 on an
+// H100), else two (2 warps); W = 32 one; 64, 256 and 512 two.  0 for a
+// width with no build.
+int cells_for(int W, int P, int* c) {
+  *c = W == 32 ? 1 : (W == 64 || W == 128 || W == 256 || W == 512 ? 2 : 0);
+  if (W != 128) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_sms[dev] == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    g_sms[dev] = sms;
+  }
+  const long warps = 16L * g_sms[dev];   // 4 schedulers x 4 warps an SM
+  if (4L * P <= warps) *c = 1;
+  return 0;
+}
+
 }  // namespace
+
+// The cells a lane (1 or 2) the launch of a batch of P pairs at band width
+// W takes, 0 for a width with no build, or a negated CUDA error.
+extern "C" int fu_pairhmm_cells(int W, int P) {
+  int c = 0;
+  const int e = cells_for(W, P, &c);
+  return e != 0 ? -e : c;
+}
 
 extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
                                   const void* n, const void* m, int P,
@@ -304,20 +340,26 @@ extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
   const auto* m32 = static_cast<const int32_t*>(m);
   auto* out = static_cast<float*>(ll);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 32:
+  int c = 0;
+  const int e = cells_for(W, P, &c);
+  if (e != 0) return e;
+  switch (W * 4 + c) {
+    case 32 * 4 + 1:
       return launch_forward<1, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
                                   Dmax, hp, out, s);
-    case 64:
-      return launch_forward<1, 2>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+    case 64 * 4 + 2:
+      return launch_forward<2, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
                                   Dmax, hp, out, s);
-    case 128:
+    case 128 * 4 + 1:
       return launch_forward<1, 4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
                                   Dmax, hp, out, s);
-    case 256:
-      return launch_forward<1, 8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+    case 128 * 4 + 2:
+      return launch_forward<2, 2>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
                                   Dmax, hp, out, s);
-    case 512:
+    case 256 * 4 + 2:
+      return launch_forward<2, 4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
+                                  Dmax, hp, out, s);
+    case 512 * 4 + 2:
       return launch_forward<2, 8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
                                   Dmax, hp, out, s);
     default:

@@ -150,6 +150,8 @@ def _load() -> dict:
             hmm.fu_pairhmm_forward.argtypes = (
                 [vp, vp, vp, vp] + [ci] * 7 + [cf] * 10 + [vp, vp])
             hmm.fu_pairhmm_forward.restype = ci
+            hmm.fu_pairhmm_cells.argtypes = [ci, ci]
+            hmm.fu_pairhmm_cells.restype = ci
             arrow = ctypes.CDLL(paths["arrow_splice"])
             arrow.fu_arrow_sweeps.argtypes = (
                 [vp] * 8 + [ci] * 5 + [vp] * 7)
@@ -320,6 +322,17 @@ def pairhmm_forward(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
             span[1].record(stream)
     PAIRHMM.count(P * Dmax * W, span)
     return ll
+
+
+def pairhmm_cells(W: int, P: int, device=None) -> int:
+    """The band cells a lane (1 or 2; W / (32 cells) warps a block) that
+    ``pairhmm_forward`` launches a batch of P pairs at band width W with on
+    a CUDA device."""
+    lib = _load()["pairhmm"]
+    with torch.cuda.device(device):
+        c = lib.fu_pairhmm_cells(W, P)
+    _check(max(0, -c), "pairhmm_cells")
+    return c
 
 
 def arrow_sweeps(q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,

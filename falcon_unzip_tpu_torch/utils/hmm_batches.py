@@ -124,10 +124,14 @@ def pack(rng, specs, *, Lq: int, Lt: int) -> tuple:
     return q, t, n, m
 
 
-def edge_batch(kind: str, W: int, seed: int = 0) -> dict:
-    """One kind's batch at band width W: numpy q, t, n, m and the schedule
-    length Dmax (the full Lq + Lt + 1 unless the kind cuts it)."""
+def edge_batch(kind: str, W: int, seed: int = 0, P: int | None = None
+               ) -> dict:
+    """One kind's batch at band width W, its pairs repeated up to P if P is
+    given: numpy q, t, n, m and the schedule length Dmax (the full Lq + Lt
+    + 1 unless the kind cuts it)."""
     specs, Dmax = edge_specs(kind, W)
+    if P is not None:
+        specs = (specs * -(-P // len(specs)))[:P]
     L = window(W)
     q, t, n, m = pack(np.random.default_rng(seed + W), specs, Lq=L, Lt=L)
     return {"q": q, "t": t, "n": n, "m": m,

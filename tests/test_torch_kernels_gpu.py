@@ -297,18 +297,28 @@ def _pairhmm_matches_plain(batch, W, dev):
     assert bool((k[out] == -1e30).all()) and bool((p[out] == -1e30).all())
 
 
-@pytest.mark.parametrize("W", [32, 64, 128, 256, 512])
+# each build of the forward: (band width, a batch size it is launched at or
+# None for the batch's own, the cells a lane the launch takes)
+_HMM_BUILDS = [(32, None, 1), (64, None, 2), (128, None, 1), (128, 600, 2),
+               (256, None, 2), (512, None, 2)]
+
+
+@pytest.mark.parametrize("W, P, cells", _HMM_BUILDS)
 @pytest.mark.parametrize("kind", hb.EDGE_KINDS)
-def test_pairhmm_kernel_edge_batches_on_card(cuda, kind, W):
-    """Every build of the forward (one a band width) on the edge batches:
-    corners out of the band, n = 0 or m = 0, n + m ending around the
-    prologue's end (W - 1 .. W + 4), a cut schedule of odd length, corners
-    at the band's edges, long and short pairs mixed, P = 1 and P = 37."""
-    _pairhmm_matches_plain(hb.edge_batch(kind, W), W, cuda)
+def test_pairhmm_kernel_edge_batches_on_card(cuda, kind, W, P, cells):
+    """Every build of the forward on the edge batches (at W = 128 also
+    repeated to P = 600, the two-cells-a-lane build): corners out of the
+    band, n = 0 or m = 0, n + m ending around the prologue's end (W - 1 ..
+    W + 4), a cut schedule of odd length, corners at the band's edges, long
+    and short pairs mixed, P = 1 and P = 37."""
+    b = hb.edge_batch(kind, W, P=P)
+    assert _kernels.pairhmm_cells(W, len(b["n"])) == cells
+    _pairhmm_matches_plain(b, W, cuda)
 
 
-@pytest.mark.parametrize("W", [32, 128, 512])
-def test_pairhmm_kernel_rows_too_long_for_shared_memory_on_card(cuda, W):
+@pytest.mark.parametrize("W, P, cells", _HMM_BUILDS)
+def test_pairhmm_kernel_rows_too_long_for_shared_memory_on_card(cuda, W, P,
+                                                               cells):
     """Guarded rows past the kernel's shared-memory stage (96 KB): the
     builds that read the bases from device memory, on short and long
     pairs in 50 kb rows."""
@@ -316,7 +326,10 @@ def test_pairhmm_kernel_rows_too_long_for_shared_memory_on_card(cuda, W):
     L = 50_000
     specs = [(0, 0), (5, 9), (W + 3, W), (700, 690), (2 * W, 2 * W + 40),
              (400, 395)]
+    if P is not None:
+        specs = (specs * -(-P // len(specs)))[:P]
     q, t, n, m = hb.pack(rng, specs, Lq=L, Lt=L)
+    assert _kernels.pairhmm_cells(W, len(n)) == cells
     batch = {"q": q, "t": t, "n": n, "m": m, "Dmax": 2 * L + 1}
     _pairhmm_matches_plain(batch, W, cuda)
 
