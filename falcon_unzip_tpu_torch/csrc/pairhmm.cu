@@ -1,8 +1,8 @@
 // Banded pair-HMM forward for Hopper (sm_90a).
 //
 // pairhmm_forward_kernel replaces the TPU kernel
-// falcon_unzip_tpu/ops/pallas_pairhmm.py::_kernel (:41, launched by
-// _pallas_forward's pallas_call, :201).  It computes the same banded
+// falcon_unzip_tpu/ops/pallas_pairhmm.py:41 (_kernel, launched by the
+// pallas_call of _pallas_forward, :201).  It computes the same banded
 // 3-state M/I/D log-space forward as falcon_unzip_tpu/ops/pairhmm.py::
 // forward_core: the band schedule lo(d) = max(0, (d+1)/2 - W/2) of the
 // edit-distance wavefront, float32 state, NEG = -1e30 for "no path", the
@@ -16,11 +16,14 @@
 // Dmax - 1.
 //
 //   Layout: one block a pair, NW warps, C = W / (32 NW) neighbouring band
-//   cells a lane, the pair's values on antidiagonal d-1 in registers.  The
-//   guarded rows are staged in shared memory once (ACGT kept, every other
-//   code mapped to one that never matches), unless they are too long, and
-//   each lane keeps its cells' two bases in registers: one of the two
-//   windows slides by one base a step.
+//   cells a lane, the pair's values on antidiagonal d-1 in registers.  C
+//   is chosen by the launch: W = 128 takes one cell a lane (4 warps) while
+//   the batch's warps fit four a scheduler, else two (2 warps); W = 32 one,
+//   W = 64, 256 and 512 two (1, 4 and 8 warps).  The guarded rows are
+//   staged in shared memory once (ACGT kept, every other code mapped to one
+//   that never matches), unless they are too long, and each lane keeps its
+//   cells' two bases in registers: one of the two windows slides by one
+//   base a step.
 //   * Push, not pull: each of I, D and M has exactly one predecessor cell
 //     ((i-1, j), (i, j-1), (i-1, j-1)), so a cell computes from its own
 //     values the I of the cell below, the D of the cell to its right and
@@ -30,29 +33,61 @@
 //     (I up or D down), after the logaddexp instead of before it.
 //   * The band shifts are constants of each phase: s1 = lo(d) - lo(d-1)
 //     and s2 = lo(d) - lo(d-2) are (0, 0) up to d = W (lo = 0) and
-//     (d & 1, 1) from d = W + 1 on.  Within a warp a shift
-//     is one shuffle; across warps one shared-memory word a warp and step,
-//     double-buffered by step parity, with one barrier a step.
+//     (d & 1, 1) from d = W + 1 on.  Within a warp a shift is one shuffle;
+//     across warps one shared-memory word a warp and step, double-buffered
+//     by step parity, with one barrier a step.
 //   * No masks from d = W + 2 on (the steady phase, two steps at a time).
 //     There every band cell has i >= lo(d) >= 1 and j >= d/2 - W/2 + 1 >=
 //     1, so the origin, row-0 and column-0 masks are false.  The valid
 //     mask (i <= n, j <= m) is not needed either: a cell past row n or
 //     column m never feeds the (n, m) corner, since M reads (i-1, j-1), I
-//     (i-1, j) and D (i, j-1), all with i' <= i and j' <= j; so such cells
+//     (i-1, j) and D (i, j-1), all with i' <= i and j' <= j; such cells
 //     feed only cells that are themselves past row n or column m.  Their
-//     values are log-probabilities of paths over the guard bases, finite
-//     and <= 0, and cannot overflow.  The corner therefore comes out of the
-//     same operations on the same inputs with or without those masks.
+//     values are sums of log-params and logaddexps of such sums over the
+//     guard bases, finite and bounded by the pair's length, so nothing
+//     overflows.  The corner therefore comes out of the same operations on
+//     the same inputs with or without those masks.
 //   * The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx):
 //     the params are scaled by log2(e) as they are read and the result by
 //     ln(2) as it is stored; M's three terms in one max + lg2(1 + ex2 +
-//     ex2), 7 SFU operations a cell.
+//     ex2), 7 SFU operations a cell.  Against the plain version (natural
+//     log, expf/log1pf) the log-likelihoods stay within 1.8e-5 relative.
 //   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
 //     corner is read once after the loop, from the lane holding w = n -
 //     lo(n + m).
 //
-// The C entry point launches on the given stream and returns
-// cudaGetLastError().
+//   What bounds it (scripts/tune_pairhmm.py on an NVIDIA H100 80GB HBM3 at
+//   700 W, 512-base windows, n + m ~ 900; no profiler): for a lone pair
+//   the chain of a step, once the card is full the SFU.  A step's chain is
+//   the handed-on logaddexp (two dependent MUFU operations and ~6 FP32
+//   ones), a shuffle and a shared word, the barrier and the next step's
+//   add: ~190 cycles, 0.094 ms at W = 128 and P = 16, nearly flat to P =
+//   256 (0.106 ms, 2.2x the SFU floor of 0.049 ms).  A full card runs near
+//   the SFU floor (7 MUFU operations a cell at 16 a clock an SM): 0.962 ms
+//   against 0.790 at P = 4096.  The SASS of a steady step at one cell a
+//   lane is ~70 instructions, 7 of them MUFU.
+//
+//   Measured at W = 128, P = 16 / 256 / 4096 (ms), each step against the
+//   earlier kernel in the same call (a warp a pair, four pairs a block, C
+//   = W/32 cells a lane, run-time shifts, per-cell loads, masks and corner
+//   tests on every step, expf/log1pf: 1.357-1.368 / 1.373-1.384 /
+//   4.03-4.04): a block a pair, values pushed, masks on every step,
+//   expf/log1pf: 0.363-0.366 / 0.394-0.397 / 3.04-3.07; no masks in the
+//   steady phase: 0.306-0.309 / 0.336-0.339 / 2.80-2.82 (both exact to the
+//   plain version); the base-2 logaddexp: 0.094-0.098 / 0.110-0.116 /
+//   1.10; the cells a lane chosen by P and the edge words indexed directly
+//   (no shared window base rebuilt in the loop): 0.094-0.097 / 0.106-0.108
+//   / 0.962-0.971.  Dropped: one cell a lane at W = 64 (0.093 / 0.097 /
+//   0.582 against two cells' 0.085-0.091 / 0.082-0.086 / 0.490) and at W
+//   = 256 (0.126 / 0.185 / 2.21 against 0.116 / 0.160 / 1.92); two cells a
+//   lane at W = 128 below P = 528 (0.108 / 0.114 at P = 16 / 256); a warp
+//   a pair, four cells a lane at W = 128 (0.169 / 0.171 / 0.983) and eight
+//   at W = 256 (0.441 / 0.368 / 1.94); at W = 512 one cell (16 warps) or
+//   four (4 warps) a lane (0.336 and 0.368 against 0.329 ms at P = 256;
+//   four cells 3% faster at P = 4096 only, 4.26 against 4.39).
+//
+// The C entry points launch on the given stream and return
+// cudaGetLastError(), or report the cells a lane a launch takes.
 
 #include <cstdint>
 #include <type_traits>

@@ -23,10 +23,13 @@
 // finite seeded init makes the shift, the window and the logaddexps each
 // show in out, which is what the parity checks run at.
 //
-//   Layout: that of csrc/pairhmm.cu.  One warp per row, lane L holds the
-//   C = W/32 contiguous cells w = L*C .. L*C + C-1 of M/I/D on the
-//   antidiagonals d-1 and d-2 in registers; the shift crosses lanes with
-//   one __shfl_up_sync of the edge cell.  The block's rows of qg are
+//   Layout: the first design of csrc/pairhmm.cu, which that kernel has
+//   since left (it now runs a block a pair, pushes values to their one
+//   successor cell, has constant shifts and an unmasked steady phase, and
+//   a base-2 logaddexp on the SFU).  One warp per row, four rows a block,
+//   lane L holds the C = W/32 contiguous cells w = L*C .. L*C + C-1 of
+//   M/I/D on the antidiagonals d-1 and d-2 in registers; the shift crosses
+//   lanes with one __shfl_up_sync of the edge cell.  The block's rows of qg are
 //   copied into shared memory first in every variant, as the TPU kernel's
 //   BlockSpec copies its block into VMEM; LOAD reads the window from there
 //   (lane stride C words: a C-way bank conflict per read).

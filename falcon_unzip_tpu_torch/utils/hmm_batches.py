@@ -17,6 +17,7 @@ import torch
 from falcon_unzip_tpu_torch.ops.banded_align import (build_schedule,
                                                      prepare_batch)
 from falcon_unzip_tpu_torch.oracle.align import band_lo
+from falcon_unzip_tpu_torch.utils.arrow_batches import _pair
 from falcon_unzip_tpu_torch.utils.simulate import mutate_read, random_genome
 
 EDGE_KINDS = ("out_of_band", "empty", "prologue_end", "truncated",
@@ -93,16 +94,6 @@ def edge_specs(kind: str, W: int) -> tuple:
             specs.append((n, m))
         return specs, None
     raise ValueError(f"unknown edge kind {kind!r}")
-
-
-def _pair(rng, n: int, m: int, err: float, seed: int) -> tuple:
-    """A template of m bases and a read of exactly n bases drawn from it
-    (mutated at err, then cut or extended with random bases)."""
-    t = random_genome(m, seed) if m else np.zeros(0, np.int8)
-    q = mutate_read(t, err, rng)[:n] if m else np.zeros(0, np.int8)
-    if len(q) < n:
-        q = np.concatenate([q, rng.integers(0, 4, n - len(q)).astype(np.int8)])
-    return q.astype(np.int8), t.astype(np.int8)
 
 
 def pack(rng, specs, *, Lq: int, Lt: int) -> tuple:

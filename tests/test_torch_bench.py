@@ -64,6 +64,9 @@ def test_pairhmm_counts_at_the_bench_shape():
     assert w["ops"] == 48 * w["cells"]
     assert w["bytes"] == 256 * (700 + 900) + 12 * 256
     assert w["peak"] == bench.FP32_PEAK == 67e12
+    # 7 SFU operations a cell at 16 a clock on each of 132 SMs at 1.98 GHz
+    assert w["sfu_ms"] == pytest.approx(1e3 * 7 * w["cells"]
+                                        / (132 * 16 * 1.98e9))
     # 1 ms per launch -> cells/s -> share of the fp32 peak
     pct = bench.pct_fp32_peak(w["cells"] / 1e-3)
     assert pct == pytest.approx(100 * 256 * 1003 * 128 * 48 / 1e-3 / 67e12)
