@@ -23,8 +23,8 @@ non-zero:
    falcon_unzip_tpu_torch/utils/hmm_batches.py (corners out of the band,
    n = 0 or m = 0, n + m around the prologue's end, a cut schedule,
    corners at the band's edges, mixed lengths, P = 1 and 37) in every
-   build, W 32/64/128/256/512, and 50 kb rows (the builds that read the
-   bases from device memory), out-of-band pairs exactly NEG.  Arrow
+   build, W 32/64/128/256/512, and 50 kb rows, out-of-band pairs exactly
+   NEG.  Arrow
    splice sweeps: P=512,
    Lq=LJ=640, C=4, per-pair params and per-base tiers (T=6): the raw sweep
    outputs and the splice scores, then the edge shapes of
@@ -51,7 +51,9 @@ non-zero:
    same run with the scorer's plain version on the card, and the window
    of tests/test_polisher.py::test_arrow_matches_window_oracle equals
    oracle.hmm.polish_window_oracle; the P, Lq, Lt and W of each pair-HMM
-   launch, and the kernel's time at the largest;
+   launch, and at the largest the kernel held against its plain version
+   (within 1e-3 relative, out-of-band pairs exactly NEG) and timed: the
+   kernels line's pair-HMM entry;
 5. the main path at size: 3-unzip then 4-polish on cuda over a diploid
    genome of --genome-bp (default 1 Mb) with the n50 contig profile, 25x
    preads and 29x raw reads at 3% error (the recipe of
@@ -317,7 +319,7 @@ def _windows(np, rng, P, win, tlen):
     return q, n, t, m
 
 
-def phase_parity_hmm(torch, np) -> dict:
+def phase_parity_hmm(torch, np) -> None:
     """Pair-HMM forward kernel against pairhmm_forward_plain on the card
     at the bench shape (P=256, 512 bp windows, Dmax 1025), then on the edge
     batches of utils/hmm_batches.py in every build."""
@@ -331,7 +333,6 @@ def phase_parity_hmm(torch, np) -> dict:
     P, WIN = 256, 512
     q, n, t, m = _windows(np, rng, P, WIN, (400, 501))
     pvec = ph.params_vector()
-    res = {}
     for W in (64, 128, 256):
         qg, trg, G = ba.prepare_batch(q, t, W)
         Dmax, lo = ba.build_schedule(WIN, WIN, W)
@@ -354,7 +355,6 @@ def phase_parity_hmm(torch, np) -> dict:
         ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 5)
         work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
                                   LTG=trg.shape[1])
-        res[W] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel, work=work)
         bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
         print(f"[3 parity] pairhmm_forward W={W} P={P} win={WIN} Dmax={Dmax}"
               f" in-band {int(ok.sum())}/{P} | max abs err {err:.3g} rel "
@@ -391,7 +391,6 @@ def phase_parity_hmm(torch, np) -> dict:
           f" and 50 kb rows in every build (W = 32/64/128/256/512; W = 128 "
           f"also at P = 600, two cells a lane) | max rel err {worst:.3g} (bar "
           "1e-3), out-of-band pairs exactly NEG", flush=True)
-    return res
 
 
 def phase_parity_arrow(torch, np) -> dict:
@@ -800,15 +799,33 @@ def phase_reforward(torch, np, d) -> dict:
     b = {"q": q, "t": t, "n": n.astype(np.int32), "m": m.astype(np.int32),
          "Dmax": q.shape[1] + t.shape[1] + 1}
     args, kw = hb.to_device(b, W, ph.params_vector(), torch.device("cuda"))
+    # that launch held against the plain version on the same inputs
+    k = ph.pairhmm_forward(*args, **kw)
+    t0 = time.perf_counter()
+    p = ph.pairhmm_forward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    rel = hb.max_rel_err(k, p)
+    if not rel <= 1e-3 or not bool((k[p < -1e29] == -1e30).all()) \
+            or not bool(torch.isfinite(k).all()):
+        _fail(f"pairhmm at the re-forward launch shape: rel err {rel} over "
+              "the bar, or an out-of-band pair not exactly NEG")
+    ok = p > -1e29
+    err = float((k[ok].double() - p[ok].double()).abs().max()) \
+        if bool(ok.any()) else 0.0
     ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 10)
     work = bench.pairhmm_work(b["n"], b["m"], Dmax=b["Dmax"], W=W,
                               LQG=args[0].shape[1], LTG=args[1].shape[1])
     bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
     print(f"[4b reforward] launch shapes at W={W}: {shapes} | largest "
-          f"P={q.shape[0]} Lq={q.shape[1]} Lt={t.shape[1]}: kernel {ms:.4f} "
-          f"ms, bound {bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
+          f"P={q.shape[0]} Lq={q.shape[1]} Lt={t.shape[1]} ("
+          f"{_kernels.pairhmm_cells(W, q.shape[0])} cells a lane): in-band "
+          f"{int(ok.sum())}/{q.shape[0]}, max abs err {err:.3g} rel "
+          f"{rel:.3g} (bar 1e-3) | kernel {ms:.4f} ms (plain {plain_ms:.1f} "
+          f"ms) | bound {bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
           flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "work": work}
 
 
 def _n50_lengths(genome_bp):
@@ -1045,8 +1062,7 @@ def phase_bench() -> dict:
 
 
 def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
-    """One kernel of the kernels line; its bound (and SFU floor, where the
-    work counts one) from this run's work."""
+    """One kernel of the kernels line; its bound from this run's work."""
     from falcon_unzip_tpu_torch import bench
     bound, by = bench.bound_ms(work["ops"], work["bytes"], work["peak"])
     entry = {"name": name, "route": "cuda",
@@ -1054,8 +1070,6 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
              "replaces": replaces, "launches": launches, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
              "bound_by": by, "library_ms": None}
-    if "sfu_ms" in work:
-        entry["sfu_floor_ms"] = work["sfu_ms"]
     return entry
 
 
@@ -1074,7 +1088,7 @@ def main(argv=None) -> int:
     smi = phase_card(torch)
     phase_build()
     shapes = phase_parity_align(torch, np)
-    hmm = phase_parity_hmm(torch, np)
+    phase_parity_hmm(torch, np)
     arrow = phase_parity_arrow(torch, np)
     ablate = phase_parity_ablate(torch, smi)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1104,8 +1118,8 @@ def main(argv=None) -> int:
                at["tb_plain_ms"], at["tb_work"]),
         _entry("pairhmm_forward", "pairhmm.cu",
                "falcon_unzip_tpu/ops/pallas_pairhmm.py:41",
-               reforward["launches"], max(v["err"] for v in hmm.values()),
-               hmm[128]["ms"], hmm[128]["plain_ms"], hmm[128]["work"]),
+               reforward["launches"], reforward["err"], reforward["ms"],
+               reforward["plain_ms"], reforward["work"]),
         _entry("arrow_splice", "arrow_splice.cu",
                "falcon_unzip_tpu/ops/arrow.py:88",
                main_run["launches"]["arrow_splice"],

@@ -18,10 +18,10 @@
 //   Layout: one block a pair, NW warps, C = W / (32 NW) neighbouring band
 //   cells a lane, the pair's values on antidiagonal d-1 in registers.  C
 //   is chosen by the launch: W = 128 takes one cell a lane (4 warps) while
-//   the batch's warps fit four a scheduler, else two (2 warps); W = 32 one,
-//   W = 64, 256 and 512 two (1, 4 and 8 warps).  The guarded rows are
-//   staged in shared memory once (ACGT kept, every other code mapped to one
-//   that never matches), unless they are too long, and each lane keeps its
+//   the batch fits three blocks an SM, else two (2 warps); W = 32 one, W =
+//   64, 256 and 512 two (1, 4 and 8 warps).  The guarded rows are staged in
+//   shared memory once (ACGT kept, every other code mapped to one that
+//   never matches), unless they are too long, and each lane keeps its
 //   cells' two bases in registers: one of the two windows slides by one
 //   base a step.
 //   * Push, not pull: each of I, D and M has exactly one predecessor cell
@@ -77,14 +77,27 @@
 //   plain version); the base-2 logaddexp: 0.094-0.098 / 0.110-0.116 /
 //   1.10; the cells a lane chosen by P and the edge words indexed directly
 //   (no shared window base rebuilt in the loop): 0.094-0.097 / 0.106-0.108
-//   / 0.962-0.971.  Dropped: one cell a lane at W = 64 (0.093 / 0.097 /
-//   0.582 against two cells' 0.085-0.091 / 0.082-0.086 / 0.490) and at W
-//   = 256 (0.126 / 0.185 / 2.21 against 0.116 / 0.160 / 1.92); two cells a
-//   lane at W = 128 below P = 528 (0.108 / 0.114 at P = 16 / 256); a warp
-//   a pair, four cells a lane at W = 128 (0.169 / 0.171 / 0.983) and eight
-//   at W = 256 (0.441 / 0.368 / 1.94); at W = 512 one cell (16 warps) or
-//   four (4 warps) a lane (0.336 and 0.368 against 0.329 ms at P = 256;
-//   four cells 3% faster at P = 4096 only, 4.26 against 4.39).
+//   / 0.962-0.971.  The shared-memory stage of the rows, against reading
+//   them from device memory in every build: at P = 16 0.084-0.086 /
+//   0.092-0.093 / 0.125 against 0.101-0.104 / 0.122 / 0.139-0.141 (W = 64
+//   / 128 / 256), at P = 4096 0.482 / 0.960-0.962 / 1.890-1.895 against
+//   0.496 / 1.029-1.030 / 1.982-1.986, at the re-forward polish's launch
+//   (P = 7095, W = 128) 1.696-1.697 against 1.801-1.802.  W = 128's cells a
+//   lane, at k blocks an SM: a block of 4 warps puts one warp on each of
+//   the SM's 4 schedulers, blocks of 2 warps pair up, so a scheduler runs
+//   k one-cell warps or ceil(k / 2) two-cell ones.  One cell wins at k <=
+//   3 (P = 256 / 384: 0.104 / 0.137 against 0.114 / 0.159), two at k = 4
+//   (P = 448 / 528: 0.158 / 0.159 against 0.171 / 0.172) and at k >= 6 (P
+//   = 768 / 1024 / 4096: 0.222 / 0.276 / 0.970 against 0.244 / 0.295 /
+//   1.039); at k = 5 one cell is 6% faster (P = 640: 0.209 against 0.222)
+//   and the launch takes two all the same.  Dropped: one cell a lane at W
+//   = 64 (0.093 / 0.097 / 0.582 against two cells' 0.085-0.091 /
+//   0.082-0.086 / 0.490) and at W = 256 (0.126 / 0.185 / 2.21 against 0.116
+//   / 0.160 / 1.92); a warp a pair, four cells a lane at W = 128 (0.169 /
+//   0.171 / 0.983) and eight at W = 256 (0.441 / 0.368 / 1.94); at W = 512
+//   one cell (16 warps) or four (4 warps) a lane (0.336 and 0.368 against
+//   0.329 ms at P = 256; four cells 3% faster at P = 4096 only, 4.26
+//   against 4.39).
 //
 // The C entry points launch on the given stream and return
 // cudaGetLastError(), or report the cells a lane a launch takes.
@@ -328,9 +341,9 @@ int g_sms[kMaxDevices];
 
 // Cells a lane of the launch for band width W and a batch of P pairs on
 // the current device (W / (32 cells) warps a block): W = 128 takes one (4
-// warps) while the batch's warps fit four a scheduler (P <= 528 on an
-// H100), else two (2 warps); W = 32 one; 64, 256 and 512 two.  0 for a
-// width with no build.
+// warps) while the batch fits three blocks an SM (P <= 396 on an H100),
+// else two (2 warps); W = 32 one; 64, 256 and 512 two.  0 for a width with
+// no build.
 int cells_for(int W, int P, int* c) {
   *c = W == 32 ? 1 : (W == 64 || W == 128 || W == 256 || W == 512 ? 2 : 0);
   if (W != 128) return 0;
@@ -345,8 +358,7 @@ int cells_for(int W, int P, int* c) {
     if (e != cudaSuccess) return static_cast<int>(e);
     g_sms[dev] = sms;
   }
-  const long warps = 16L * g_sms[dev];   // 4 schedulers x 4 warps an SM
-  if (4L * P <= warps) *c = 1;
+  if (P <= 3L * g_sms[dev]) *c = 1;
   return 0;
 }
 
@@ -360,13 +372,14 @@ extern "C" int fu_pairhmm_cells(int W, int P) {
   return e != 0 ? -e : c;
 }
 
-extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
-                                  const void* n, const void* m, int P,
-                                  int LQG, int LTG, int Lt, int G, int Dmax,
-                                  int W, float em_match, float em_mis,
-                                  float em_ins, float tMM, float tMI,
-                                  float tMD, float tIM, float tII, float tDM,
-                                  float tDD, void* ll, void* stream) {
+// The forward with `cells` cells a lane: 0 for the build fu_pairhmm_cells
+// names, else 1 or 2 (both are built at W = 128 only; for timing them
+// against each other).
+extern "C" int fu_pairhmm_forward_cells(
+    int cells, const void* qg, const void* trg, const void* n, const void* m,
+    int P, int LQG, int LTG, int Lt, int G, int Dmax, int W, float em_match,
+    float em_mis, float em_ins, float tMM, float tMI, float tMD, float tIM,
+    float tII, float tDM, float tDD, void* ll, void* stream) {
   const HmmParams hp{em_match, em_mis, em_ins, tMM, tMI,
                      tMD,      tIM,    tII,    tDM, tDD};
   const auto* q8 = static_cast<const int8_t*>(qg);
@@ -375,9 +388,11 @@ extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
   const auto* m32 = static_cast<const int32_t*>(m);
   auto* out = static_cast<float*>(ll);
   auto s = static_cast<cudaStream_t>(stream);
-  int c = 0;
-  const int e = cells_for(W, P, &c);
-  if (e != 0) return e;
+  int c = cells;
+  if (c == 0) {
+    const int e = cells_for(W, P, &c);
+    if (e != 0) return e;
+  }
   switch (W * 4 + c) {
     case 32 * 4 + 1:
       return launch_forward<1, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
@@ -400,4 +415,16 @@ extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,
+                                  const void* n, const void* m, int P,
+                                  int LQG, int LTG, int Lt, int G, int Dmax,
+                                  int W, float em_match, float em_mis,
+                                  float em_ins, float tMM, float tMI,
+                                  float tMD, float tIM, float tII, float tDM,
+                                  float tDD, void* ll, void* stream) {
+  return fu_pairhmm_forward_cells(0, qg, trg, n, m, P, LQG, LTG, Lt, G, Dmax,
+                                  W, em_match, em_mis, em_ins, tMM, tMI, tMD,
+                                  tIM, tII, tDM, tDD, ll, stream);
 }

@@ -150,6 +150,9 @@ def _load() -> dict:
             hmm.fu_pairhmm_forward.argtypes = (
                 [vp, vp, vp, vp] + [ci] * 7 + [cf] * 10 + [vp, vp])
             hmm.fu_pairhmm_forward.restype = ci
+            hmm.fu_pairhmm_forward_cells.argtypes = (
+                [ci, vp, vp, vp, vp] + [ci] * 7 + [cf] * 10 + [vp, vp])
+            hmm.fu_pairhmm_forward_cells.restype = ci
             hmm.fu_pairhmm_cells.argtypes = [ci, ci]
             hmm.fu_pairhmm_cells.restype = ci
             arrow = ctypes.CDLL(paths["arrow_splice"])
