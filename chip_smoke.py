@@ -39,8 +39,8 @@ non-zero:
    (P=256, W=128, Dmax=1025, LQG=1024), from the script's NEG start equal
    (tolerance 0), and at a seeded probe where each part changes the
    output, equal without the logaddexps and within 1e-5 relative with
-   them; each set's time from the NEG and from a seeded start beside the
-   card's name and power limit;
+   them; each set's time from the NEG and from a seeded start beside its
+   SFU floor and the card's name and power limit;
 4. golden fixture: 3-unzip and 4-polish on cuda through the port's
    command line must reproduce the five golden hashes of
    tests/test_golden.py, and cns_*.fastq must carry the sequences of a
@@ -66,7 +66,8 @@ non-zero:
    tiered consensus must equal the truth and the flat one the port's flat
    polish of the same alignments on the CPU;
 6. the ablation path: python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
-   (each set's time beside the card's name and power limit);
+   (each set's time beside its SFU floor and the card's name and power
+   limit);
 7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
    line printed as it is;
 8. the kernels line (each kernel's launches on its path, its time at the
@@ -491,6 +492,7 @@ def phase_parity_ablate(torch, smi) -> dict:
     where every set gives its own out: the sets without the logaddexps
     equal, those with them within 1e-5 relative.  Each set is timed from
     the NEG start and from a seeded one."""
+    from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
     from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
     dt = lambda x: torch.from_numpy(x).to("cuda")
@@ -525,14 +527,16 @@ def phase_parity_ablate(torch, smi) -> dict:
             qg, seeded, feats, Dmax=ab.Dmax), 20)
         res[feats] = dict(ms=ms, ms_seeded=ms_seeded, plain_ms=plain_ms,
                           err=err)
+        sfu = bench.ablate_work(feats, P=ab.P, Dmax=ab.Dmax, W=ab.W,
+                                LQG=ab.LQG)["sfu_ms"]
         print(f"[3 parity] pairhmm_ablate {feats} P={ab.P} W={ab.W} "
               f"Dmax={ab.Dmax} LQG={ab.LQG} | from NEG equal | at the probe "
               f"max abs err {err:.3g} rel {rel:.3g} (bar "
               f"{'1e-5 rel' if 'lse' in feats else '0'}) | kernel {ms:.4f} "
               f"ms, {1e3 * ms / ab.Dmax:.4f} us/step from NEG, "
               f"{ms_seeded:.4f} ms, {1e3 * ms_seeded / ab.Dmax:.4f} us/step "
-              f"from the seeded start (plain {plain_ms:.1f} ms) | {smi}",
-              flush=True)
+              f"from the seeded start, SFU floor {sfu:.4f} ms (plain "
+              f"{plain_ms:.1f} ms) | {smi}", flush=True)
     for a in range(len(probe_outs)):
         for b in range(a):
             if torch.equal(probe_outs[a], probe_outs[b]):

@@ -70,11 +70,12 @@ OPS_PER_CELL = {
     "arrow_splice": 66,
 }
 
-# Transcendentals a cell on the SFU (MUFU ex2 / lg2) in the card kernel's
-# base-2 logaddexp: 3 for M's three-term form, 2 each for I and D.  The
-# bound above counts them at the FMA rate; the SFU starts 16 a clock on an
-# SM (132 SMs x 16 x 1.98 GHz).
-SFU_PER_CELL = {"pairhmm_forward": 7}
+# Transcendentals a cell on the SFU (MUFU ex2 / lg2) in the card kernels'
+# base-2 logaddexp: in the forward 3 for M's three-term form, 2 each for I
+# and D; in the ablation's sets with the logaddexps 2 each for its four
+# (the TPU kernel's nesting).  The bound above counts them at the FMA
+# rate; the SFU starts 16 a clock on an SM (132 SMs x 16 x 1.98 GHz).
+SFU_PER_CELL = {"pairhmm_forward": 7, "pairhmm_ablate": 8}
 SFU_PEAK = 132 * 16 * 1.98e9
 
 # ops/banded_align.py:125-151 per antidiagonal and pair, int32: the i >= 1
@@ -167,13 +168,16 @@ def arrow_work(n, m, *, Lq: int, LJ: int, C: int) -> dict:
 
 
 def ablate_work(feats, *, P: int, Dmax: int, W: int, LQG: int) -> dict:
-    """Cells, operations and bytes of one ablation call: every step of
+    """Cells, operations and bytes of one ablation call, and its SFU
+    floor in ms (``sfu_ms``, 0 without the logaddexps): every step of
     every row runs; the int32 rows and the (P, W) start read once, the
     (P, W) maxima written."""
     cells = P * Dmax * W
+    sfu = SFU_PER_CELL["pairhmm_ablate"] if "lse" in feats else 0
     return {"cells": cells,
             "ops": cells * ABLATE_OPS_PER_CELL[tuple(sorted(feats))],
-            "bytes": 4 * P * LQG + 8 * P * W, "peak": FP32_PEAK}
+            "bytes": 4 * P * LQG + 8 * P * W, "peak": FP32_PEAK,
+            "sfu_ms": 1e3 * cells * sfu / SFU_PEAK}
 
 
 def pct_fp32_peak(cells_per_s: float) -> float:

@@ -1,8 +1,8 @@
 // Ablation of the pair-HMM antidiagonal step for Hopper (sm_90a).
 //
 // pairhmm_ablate_kernel replaces the TPU diagnostic kernel
-// scripts/ablate_pallas.py::make.kern (launched by its pallas_call): the
-// antidiagonal step of the banded pair-HMM forward (csrc/pairhmm.cu)
+// scripts/ablate_pallas.py:17 (kern, launched by the pallas_call at :65):
+// the antidiagonal step of the banded pair-HMM forward (csrc/pairhmm.cu)
 // reduced to its three parts, each switched on or off at compile time so
 // each can be timed alone:
 //   SHIFT  the +-1 band shift: the d-1 and d-2 M planes shifted by one
@@ -23,130 +23,133 @@
 // finite seeded init makes the shift, the window and the logaddexps each
 // show in out, which is what the parity checks run at.
 //
-//   Layout: the first design of csrc/pairhmm.cu, which that kernel has
-//   since left (it now runs a block a pair, pushes values to their one
-//   successor cell, has constant shifts and an unmasked steady phase, and
-//   a base-2 logaddexp on the SFU).  One warp per row, four rows a block,
-//   lane L holds the C = W/32 contiguous cells w = L*C .. L*C + C-1 of
-//   M/I/D on the antidiagonals d-1 and d-2 in registers; the shift crosses
-//   lanes with one __shfl_up_sync of the edge cell.  The block's rows of qg are
-//   copied into shared memory first in every variant, as the TPU kernel's
-//   BlockSpec copies its block into VMEM; LOAD reads the window from there
-//   (lane stride C words: a C-way bank conflict per read).
-//
-//   What bounds it: a chain of Dmax dependent steps per row, each a few
-//   SFU ops (LSE), shuffles (SHIFT) and shared-memory reads (LOAD); no
-//   device-memory traffic after the first copy, so latency per step times
-//   Dmax, hidden only by the other warps in flight.
+//   Layout: that of csrc/pairhmm.cu at W = 128.  One block a row, 4 warps,
+//   one band cell a lane: lane w of the block holds cell w's M/I/D on the
+//   antidiagonals d-1 and d-2 and its out in registers, so P = 256 rows
+//   are 256 blocks over the card's 132 SMs.
+//   * The band shifts are constants of each phase: s1 = 0 for every d <=
+//     W (lo = 0), then s1 = d & 1, so from d = W + 1 on the loop runs two
+//     steps at a time, the odd one without the shift and the even one
+//     with it.
+//   * The shift's exchange: after every step each cell hands its new M
+//     to the cell above (w + 1), which keeps the last two it received as
+//     its shifted M planes.  Within a warp one shuffle; across warps one
+//     shared-memory word a warp, double-buffered by exchange parity, so
+//     one barrier a step serves.  Lane 0 of warp 0 takes NEG.  The sets
+//     without SHIFT have no cross-lane traffic and no barrier in the loop.
+//   * The row of qg is copied into shared memory once (4 KB at LQG =
+//     1024), in every set, as the TPU kernel's BlockSpec copies its block
+//     into VMEM; LOAD reads row[lo + w]: consecutive words, no bank
+//     conflict.
+//   * out stays in a register and is stored once, coalesced.
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kW = 128;            // the band of the TPU script
+constexpr int kWarps = kW / 32;    // one cell a lane
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShift = 1, kLoad = 2, kLse = 4;
-
-__device__ __forceinline__ int band_lo(int d, int W) {
-  const int x = (d + 1) / 2 - W / 2;
-  return x > 0 ? x : 0;
-}
 
 __device__ __forceinline__ float lae(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
 }
 
-template <int C, bool SHIFT, bool LOAD, bool LSE>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <bool SHIFT, bool LOAD, bool LSE>
+__global__ void __launch_bounds__(kW)
 pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
-                      const float* __restrict__ init, int P, int LQG,
-                      int Dmax, float* __restrict__ out) {
-  constexpr int W = 32 * C;
-  extern __shared__ int32_t rows[];  // kWarpsPerBlock x LQG
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= P) return;  // whole warp leaves together; no block barrier below
-  int32_t* row = rows + static_cast<size_t>(warp) * LQG;
-  const int32_t* src = qg + static_cast<size_t>(p) * LQG;
-  for (int k = lane; k < LQG; k += 32) row[k] = src[k];
-  __syncwarp();
-  const int w0 = lane * C;
+                      const float* __restrict__ init, int LQG, int Dmax,
+                      float* __restrict__ out) {
+  extern __shared__ int32_t row[];     // the block's row of qg
+  __shared__ float s_edge[2][kWarps];  // lane 31's new M, by parity
+  const int w = threadIdx.x;
+  const int lane = w & 31;
+  const int warp = w >> 5;
+  const int32_t* src = qg + static_cast<size_t>(blockIdx.x) * LQG;
+  for (int k = w; k < LQG; k += kW) row[k] = src[k];
 
-  const float* seed = init + static_cast<size_t>(p) * W + w0;
-  float M1[C], I1[C], D1[C], M2[C], I2[C], D2[C], acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    M1[c] = I1[c] = D1[c] = seed[c];
-    M2[c] = I2[c] = D2[c] = seed[c];
-    acc[c] = kNeg;
-  }
+  const float* seed = init + static_cast<size_t>(blockIdx.x) * kW;
+  float M1 = seed[w], I1 = M1, D1 = M1, M2 = M1, I2 = M1, D2 = M1;
+  // the shifted M planes, M[w - 1] on d-1 and d-2 (NEG at w = 0)
+  float uM1 = w > 0 ? seed[w - 1] : kNeg;
+  float uM2 = uM1;
+  float acc = kNeg;
+  __syncthreads();
 
-  for (int d = 0; d < Dmax; ++d) {
-    const int lo = band_lo(d, W);
-    const int s1 = lo - band_lo(d - 1, W);
-    float m1_prev = kNeg, m2_prev = kNeg;
-    if (SHIFT) {
-      m1_prev = __shfl_up_sync(kFull, M1[C - 1], 1);
-      m2_prev = __shfl_up_sync(kFull, M2[C - 1], 1);
-      if (lane == 0) m1_prev = m2_prev = kNeg;
+  int par = 0;
+  // hand the step's M to the cell above: uM2 <- uM1 <- M[w - 1]
+  auto exchange = [&]() {
+    float u = __shfl_up_sync(kFull, M1, 1);
+    if (lane == 31) s_edge[par][warp] = M1;
+    __syncthreads();
+    if (lane == 0) u = warp > 0 ? s_edge[par][warp - 1] : kNeg;
+    uM2 = uM1;
+    uM1 = u;
+    par ^= 1;
+  };
+  // one antidiagonal at band offset lo, shifted if S (a phase constant)
+  auto step = [&](int lo, auto s_tag) {
+    constexpr bool S = SHIFT && decltype(s_tag)::value;
+    const float Md = S ? uM2 : M2;
+    const float Mu = S ? uM1 : M1;
+    float em = -0.1f;
+    if (LOAD) em = row[lo + w] < 4 ? -0.1f : -3.0f;
+    float M, I, D;
+    if (LSE) {
+      M = em + lae(lae(Md - 0.1f, I2 - 3.0f), D2 - 3.0f);
+      I = lae(Mu - 3.0f, I1 - 1.6f);
+      D = lae(M1 - 3.0f, D1 - 1.6f);
+    } else {
+      M = em + fmaxf(fmaxf(Md, I2), D2);
+      I = fmaxf(Mu, I1);
+      D = fmaxf(M1, D1);
     }
-    float M[C], I[C], D[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float Md = M2[c], Mu = M1[c];
-      if (SHIFT && s1 == 0) {
-        Md = c == 0 ? m2_prev : M2[c - 1];
-        Mu = c == 0 ? m1_prev : M1[c - 1];
-      }
-      float em = -0.1f;
-      if (LOAD) em = row[lo + w0 + c] < 4 ? -0.1f : -3.0f;
-      if (LSE) {
-        M[c] = em + lae(lae(Md - 0.1f, I2[c] - 3.0f), D2[c] - 3.0f);
-        I[c] = lae(Mu - 3.0f, I1[c] - 1.6f);
-        D[c] = lae(M1[c] - 3.0f, D1[c] - 1.6f);
-      } else {
-        M[c] = em + fmaxf(fmaxf(Md, I2[c]), D2[c]);
-        I[c] = fmaxf(Mu, I1[c]);
-        D[c] = fmaxf(M1[c], D1[c]);
-      }
-      acc[c] = fmaxf(acc[c], M[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      M2[c] = M1[c];
-      I2[c] = I1[c];
-      D2[c] = D1[c];
-      M1[c] = M[c];
-      I1[c] = I[c];
-      D1[c] = D[c];
-    }
+    acc = fmaxf(acc, M);
+    M2 = M1;
+    I2 = I1;
+    D2 = D1;
+    M1 = M;
+    I1 = I;
+    D1 = D;
+    if (SHIFT) exchange();
+  };
+
+  using Shift = std::true_type;
+  using Keep = std::false_type;
+  // the prologue: lo = 0 and s1 = 0 up to d = W
+  int d = 0;
+  for (; d <= min(kW, Dmax - 1); ++d) step(0, Shift{});
+  // from d = W + 1 (odd): s1 = 1 on the odd step, 0 on the even one
+  for (; d + 1 < Dmax; d += 2) {
+    const int lo = (d + 1) / 2 - kW / 2;
+    step(lo, Keep{});
+    step(lo, Shift{});
   }
-  float* dst = out + static_cast<size_t>(p) * W + w0;
-#pragma unroll
-  for (int c = 0; c < C; ++c) dst[c] = acc[c];
+  if (d < Dmax) step((d + 1) / 2 - kW / 2, Keep{});
+
+  out[static_cast<size_t>(blockIdx.x) * kW + w] = acc;
 }
 
 template <bool SHIFT, bool LOAD, bool LSE>
 cudaError_t launch(const int32_t* qg, const float* init, int P, int LQG,
                    int Dmax, float* out, cudaStream_t stream) {
-  constexpr int C = 4;  // W = 128, the TPU kernel's band
-  const size_t smem = sizeof(int32_t) * kWarpsPerBlock * LQG;
-  auto* kern = pairhmm_ablate_kernel<C, SHIFT, LOAD, LSE>;
+  const size_t smem = sizeof(int32_t) * LQG;
+  auto* kern = pairhmm_ablate_kernel<SHIFT, LOAD, LSE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((P + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
-  kern<<<grid, block, smem, stream>>>(qg, init, P, LQG, Dmax, out);
+  kern<<<P, kW, smem, stream>>>(qg, init, LQG, Dmax, out);
   return cudaGetLastError();
 }
 
@@ -162,7 +165,7 @@ extern "C" int fu_pairhmm_ablate(const void* qg, const void* init, int P,
   const auto* i0 = static_cast<const float*>(init);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (W != 128) return cudaErrorInvalidValue;
+  if (W != kW) return cudaErrorInvalidValue;
   switch (feats) {
     case 0:
       return launch<false, false, false>(q, i0, P, LQG, Dmax, o, s);

@@ -1,6 +1,7 @@
 """Ablation timing of the pair-HMM step on one NVIDIA GPU.
 
-    python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
+    python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm [--check]
+    python falcon_unzip_tpu_torch/scripts/ablate_pairhmm.py --root OTHER_CHECKOUT
 
 The twin of the reference's ``scripts/ablate_pallas.py``: the
 antidiagonal step of the pair-HMM forward cut to its parts (band shift,
@@ -12,18 +13,24 @@ int32 bases 0..4).  Each set is timed twice: from the reference's start
 and from a seeded finite start (``seeded_init``: the values vary as in a
 real forward).  Each time is taken with CUDA events over REPS launches
 after one warm-up launch, and printed in ms and microseconds per
-antidiagonal step beside the card's name and power limit.  Needs a GPU:
-without one it raises.
+antidiagonal step beside the set's SFU floor (``bench.ablate_work``) and
+the card's name and power limit.
+
+``--check`` also holds each set against ``pairhmm_ablate_plain``: equal
+from the NEG start, and the largest absolute and relative error at the
+probe (``probe_inputs``, seed 1).  ``--root`` times another checkout's
+package (it needs only ``ops.pairhmm_ablate``) with the same inputs, so
+that two designs are compared inside one run on one card; the SFU floors
+come from this checkout.  Needs a GPU: without one it raises.
 """
 from __future__ import annotations
 
+import argparse
+import os
+import sys
+
 import numpy as np
 import torch
-
-from ..bench import card_label
-from ..device import resolve
-from ..ops.pairhmm_ablate import (FEATURE_SETS, neg_init, pairhmm_ablate,
-                                  seeded_init)
 
 P, W, Dmax, LQG = 256, 128, 1025, 1024
 REPS = 20
@@ -35,47 +42,98 @@ def rows(seed: int = 0) -> np.ndarray:
     return rng.integers(0, 5, size=(P, LQG)).astype(np.int32)
 
 
-def _time_ms(qg, init, feats) -> float:
-    pairhmm_ablate(qg, init, feats, Dmax=Dmax)             # warm-up
+def _time_ms(pa, qg, init, feats) -> float:
+    pa.pairhmm_ablate(qg, init, feats, Dmax=Dmax)          # warm-up
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(REPS):
-        pairhmm_ablate(qg, init, feats, Dmax=Dmax)
+        pa.pairhmm_ablate(qg, init, feats, Dmax=Dmax)
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / REPS
 
 
-def measure() -> list:
+def _errors(pa, qg, neg, probe, feats) -> dict:
+    """NEG-start equality and the probe's errors against the plain
+    version."""
+    k = pa.pairhmm_ablate(qg, neg, feats, Dmax=Dmax)
+    p = pa.pairhmm_ablate_plain(qg, neg, feats, Dmax=Dmax)
+    k2 = pa.pairhmm_ablate(*probe, feats, Dmax=Dmax).double()
+    p2 = pa.pairhmm_ablate_plain(*probe, feats, Dmax=Dmax).double()
+    diff = (k2 - p2).abs()
+    return {"equal_from_neg": bool(torch.equal(k, p)),
+            "probe_max_abs_err": float(diff.max()),
+            "probe_max_rel_err": float((diff / p2.abs().clamp_min(1e-30))
+                                       .max())}
+
+
+def measure(pa=None, check: bool = False) -> list:
     """[{feats, ms, us_per_step, ms_seeded, us_per_step_seeded}] for the
     five feature sets on the card: ms from the NEG start, ms_seeded from
-    the seeded one."""
-    dev = resolve("cuda")
+    the seeded one; with ``check`` the errors of ``_errors`` too.  ``pa``
+    is the ``ops.pairhmm_ablate`` module timed (this package's by
+    default)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the ablation needs a GPU")
+    if pa is None:
+        from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
+    dev = torch.device("cuda")
     qg = torch.from_numpy(rows()).to(dev)
-    starts = {"": torch.from_numpy(neg_init(P, W)).to(dev),
-              "_seeded": torch.from_numpy(seeded_init(P, W, 0)).to(dev)}
+    starts = {"": torch.from_numpy(pa.neg_init(P, W)).to(dev),
+              "_seeded": torch.from_numpy(pa.seeded_init(P, W, 0)).to(dev)}
+    probe = [torch.from_numpy(x).to(dev)
+             for x in pa.probe_inputs(P, LQG, W, 1)]
     out = []
-    for feats in FEATURE_SETS:
+    for feats in pa.FEATURE_SETS:
         r = {"feats": list(feats)}
         for tag, init in starts.items():
-            ms = _time_ms(qg, init, feats)
+            ms = _time_ms(pa, qg, init, feats)
             r["ms" + tag] = ms
             r["us_per_step" + tag] = 1e3 * ms / Dmax
+        if check:
+            r.update(_errors(pa, qg, starts[""], probe, feats))
         out.append(r)
     return out
 
 
-def main() -> list:
-    res = measure()
-    card = card_label()
+def main(argv=()) -> list:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=None,
+                    help="time the package of this checkout instead")
+    ap.add_argument("--check", action="store_true",
+                    help="hold each set against the plain version")
+    args = ap.parse_args(argv)
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    # the work counts come from this checkout whichever package is timed
+    from falcon_unzip_tpu_torch import bench
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
+        for name in [k for k in sys.modules
+                     if k.split(".")[0] == "falcon_unzip_tpu_torch"]:
+            del sys.modules[name]
+    from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
+    res = measure(pa, args.check)
+    card = bench.card_label()
+    package = os.path.dirname(os.path.dirname(os.path.abspath(pa.__file__)))
     for r in res:
+        r["sfu_ms"] = bench.ablate_work(r["feats"], P=P, Dmax=Dmax, W=W,
+                                        LQG=LQG)["sfu_ms"]
+        err = ""
+        if args.check:
+            err = (f" | {'equal' if r['equal_from_neg'] else 'DIFFERENT'} "
+                   f"from NEG, probe max abs err {r['probe_max_abs_err']:.3g}"
+                   f" rel {r['probe_max_rel_err']:.3g}")
         print(f"{tuple(r['feats'])}: {r['ms']:.4f} ms "
               f"({r['us_per_step']:.4f} us/step for {P} rows) from NEG, "
               f"{r['ms_seeded']:.4f} ms ({r['us_per_step_seeded']:.4f} "
-              f"us/step) from the seeded start | {card}", flush=True)
+              f"us/step) from the seeded start, SFU floor "
+              f"{r['sfu_ms']:.4f} ms{err} | {package} | {card}", flush=True)
     return res
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -440,18 +440,21 @@ def test_arrow_kernel_many_candidates_on_card(cuda, C, mode, nw):
     _arrow_matches_plain(ab.to_device(arrays, mode, cuda), C)
 
 
-@pytest.mark.parametrize("Dmax", [33, 385, 1025])
-def test_ablation_kernel_equals_plain_on_card(cuda, Dmax):
+@pytest.mark.parametrize("P", [1, 37, 256])
+@pytest.mark.parametrize("Dmax", [1, 2, 128, 129, 130, 131, 385, 1025])
+def test_ablation_kernel_equals_plain_on_card(cuda, Dmax, P):
     """From the NEG start (out NEG everywhere) bit-exact; at the probe,
     where each part changes out, bit-exact without the logaddexps and
-    within 1e-5 relative with them."""
+    within 1e-5 relative with them.  Dmax around the phase boundaries
+    (d = W, W + 1, W + 2, an odd and an even tail), one row to a full
+    card."""
     from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
     rng = np.random.default_rng(Dmax)
     qg = torch.from_numpy(
-        rng.integers(0, 5, size=(37, 1024)).astype(np.int32)).to(cuda)
-    neg = torch.from_numpy(pa.neg_init(37, 128)).to(cuda)
+        rng.integers(0, 5, size=(P, 1024)).astype(np.int32)).to(cuda)
+    neg = torch.from_numpy(pa.neg_init(P, 128)).to(cuda)
     probe = [torch.from_numpy(x).to(cuda)
-             for x in pa.probe_inputs(37, 1024, 128, Dmax)]
+             for x in pa.probe_inputs(P, 1024, 128, Dmax)]
     for feats in pa.FEATURE_SETS:
         _kernels.reset_counts()
         k = pa.pairhmm_ablate(qg, neg, feats, Dmax=Dmax)
