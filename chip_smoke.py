@@ -151,7 +151,11 @@ def _padded(np, seqs, width):
 
 
 def _time_ms(torch, fn, reps):
+    """Device ms a call of fn, over reps calls after a warm-up, queued
+    behind a ~5 ms spin of the card so that no host time shows between
+    them."""
     fn()
+    torch.cuda._sleep(10_000_000)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()

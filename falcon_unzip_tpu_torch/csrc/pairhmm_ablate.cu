@@ -37,6 +37,11 @@
 //     shared-memory word a warp, double-buffered by exchange parity, so
 //     one barrier a step serves.  Lane 0 of warp 0 takes NEG.  The sets
 //     without SHIFT have no cross-lane traffic and no barrier in the loop.
+//     One value a step beats two values and one barrier every second step
+//     of the steady phase (M of d-1 and d-2 handed on together before
+//     the even step): the value of d-2 then crosses on the chain beside
+//     that of d-1 instead of a step early, and the barriers saved buy
+//     nothing.
 //   * The row of qg is copied into shared memory once (4 KB at LQG =
 //     1024), in every set, as the TPU kernel's BlockSpec copies its block
 //     into VMEM; LOAD reads row[lo + w]: consecutive words, no bank

@@ -12,7 +12,8 @@ int32 bases 0..4).  Each set is timed twice: from the reference's start
 (every state plane NEG, so every exp and log1p sees the same argument)
 and from a seeded finite start (``seeded_init``: the values vary as in a
 real forward).  Each time is taken with CUDA events over REPS launches
-after one warm-up launch, and printed in ms and microseconds per
+after one warm-up launch, queued behind a spin of the card so that the
+host's time a call does not show, and printed in ms and microseconds per
 antidiagonal step beside the set's SFU floor (``bench.ablate_work``) and
 the card's name and power limit.
 
@@ -34,6 +35,7 @@ import torch
 
 P, W, Dmax, LQG = 256, 128, 1025, 1024
 REPS = 20
+SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz
 
 
 def rows(seed: int = 0) -> np.ndarray:
@@ -44,6 +46,10 @@ def rows(seed: int = 0) -> np.ndarray:
 
 def _time_ms(pa, qg, init, feats) -> float:
     pa.pairhmm_ablate(qg, init, feats, Dmax=Dmax)          # warm-up
+    # the launches queue behind a spin of the card, so that the host's
+    # time a call (tens of microseconds, more than the shortest sets'
+    # kernels) leaves no gap between them
+    torch.cuda._sleep(SPIN_CYCLES)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()

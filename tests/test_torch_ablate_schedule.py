@@ -32,33 +32,21 @@ DMAXES = [1, 2, 128, 129, 130, 131, 385]
 PLANES = ("M1", "I1", "D1", "M2", "I2", "D2")
 
 
-SCHED = "A"
-
-
-def program(Dmax: int, shift: bool, sched=None) -> list:
+def program(Dmax: int, shift: bool) -> list:
     """The kernel's loop for one block, in order: ("step", lo, S) with S
     the phase's shift constant, each followed by ("xchg",) when the set
     shifts (the step's M handed to the cell above)."""
-    sched = sched or SCHED
-    x1 = [("xchg", 1)] if shift else []
-    x2 = [("xchg", 2)] if shift else []
+    xchg = [("xchg",)] if shift else []
     prog, d = [], 0
     while d <= min(W, Dmax - 1):
-        prog += [("step", 0, True)]
-        if sched == "A" or d < W:
-            prog += x1
+        prog += [("step", 0, True), *xchg]
         d += 1
     while d + 1 < Dmax:
         lo = (d + 1) // 2 - W // 2
-        if sched == "A":
-            prog += [("step", lo, False), *x1, ("step", lo, True), *x1]
-        else:
-            prog += [("step", lo, False), *x2, ("step", lo, True)]
+        prog += [("step", lo, False), *xchg, ("step", lo, True), *xchg]
         d += 2
     if d < Dmax:
-        prog += [("step", (d + 1) // 2 - W // 2, False)]
-        if sched == "A":
-            prog += x1
+        prog += [("step", (d + 1) // 2 - W // 2, False), *xchg]
     return prog
 
 
@@ -117,26 +105,23 @@ def model(qg: np.ndarray, init: np.ndarray, feats, Dmax: int) -> tuple:
         for k, r in enumerate(warps):
             if last is not None:       # after the barrier: lane 0's word
                 u = r["sent"].copy()
-                u[..., 0] = edge[last][k - 1] if k > 0 else NEG
-                if u.ndim == 3:
-                    r["uM1"], r["uM2"] = u[0], u[1]
-                else:
-                    r["uM2"], r["uM1"] = r["uM1"], u
+                u[:, 0] = edge[last][k - 1] if k > 0 else NEG
+                r["uM2"], r["uM1"] = r["uM1"], u
             for _, lo, S in steps:
                 _step(r, qg, lo, S, feats)
             if op is not None:         # before the barrier: shuffle, word
-                v = r["M1"] if op[1] == 1 else np.stack([r["M1"], r["M2"]])
-                r["sent"] = np.concatenate([v[..., :1], v[..., :-1]], -1)
-                edge[par][k] = v[..., 31]
+                r["sent"] = np.concatenate([r["M1"][:, :1],
+                                            r["M1"][:, :-1]], axis=1)
+                edge[par][k] = r["M1"][:, 31]
         if op is not None:
             last, par = par, par ^ 1
     cat = lambda key: np.concatenate([r[key] for r in warps], axis=1)
     return cat("acc"), [cat(key) for key in PLANES]
 
 
-def plane_loop(qg, init, feats, Dmax) -> list:
-    """The state planes M1 I1 D1 M2 I2 D2 after Dmax steps of the plain
-    version's loop on whole (P, W) planes."""
+def plane_loop(qg, init, feats, Dmax) -> tuple:
+    """(out, planes) of the plain version's loop on whole (P, W) planes:
+    out and the state planes M1 I1 D1 M2 I2 D2 after Dmax steps."""
     feats = frozenset(feats)
     r = dict(w=np.arange(W), acc=np.full_like(init, NEG),
              **{key: init for key in PLANES})
@@ -146,7 +131,7 @@ def plane_loop(qg, init, feats, Dmax) -> list:
         s1 = lo - max(0, d // 2 - W // 2)
         r["uM1"], r["uM2"] = shift(r["M1"]), shift(r["M2"])
         _step(r, qg, lo, s1 == 0, feats)
-    return [r[key] for key in PLANES]
+    return r["acc"], [r[key] for key in PLANES]
 
 
 def _plain(qg, init, feats, Dmax):
@@ -197,9 +182,11 @@ def test_lane_schedule_state_planes_equal_plane_loop(feats, Dmax):
     steady phase's shifts would not show there; the state planes after
     the last step show it."""
     qg, init = probe_inputs(P, LQG, W, Dmax)
-    got = model(qg, init, feats, Dmax)[1]
+    got = model(qg, init, feats, Dmax)
     want = plane_loop(qg, init, feats, Dmax)
-    for g, x in zip(got, want):
+    np.testing.assert_allclose(want[0], _plain(qg, init, feats, Dmax),
+                               rtol=1e-6, atol=0)
+    for g, x in zip([got[0], *got[1]], [want[0], *want[1]]):
         if "lse" in feats:
             np.testing.assert_allclose(g, x, rtol=1e-6, atol=0)
         else:
