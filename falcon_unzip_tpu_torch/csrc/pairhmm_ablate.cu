@@ -10,11 +10,10 @@
 //   LOAD   the windowed base load qg[row, lo(d) + w] (what the TPU kernel
 //          rolls out of a 128-aligned window of W + 128 columns) and the
 //          emission chosen from it;
-//   LSE    the three logaddexps of the step, in the TPU kernel's nesting
-//          M = em + lae(lae(Md - 0.1, I2 - 3), D2 - 3),
-//          I = lae(Mu - 3, I1 - 1.6), D = lae(M1 - 3, D1 - 1.6),
-//          lae(a, b) = max(a, b) + log1p(exp(-|a - b|)); with the bit off
-//          the same step in plain max.
+//   LSE    the step's logaddexps, M = em + lae(Md - 0.1, I2 - 3, D2 - 3),
+//          I = lae(Mu - 3, I1 - 1.6), D = lae(M1 - 3, D1 - 1.6), lae the
+//          log of the sum of the exps (the TPU kernel nests M's as two
+//          two-term ones); with the bit off the same step in plain max.
 // Every step folds M into out = max(out, M) and runs to d = Dmax - 1, so
 // no step can be dropped.  out starts at NEG = -1e30 and the shift fills
 // NEG, as in the TPU kernel; the six state planes start from the input
@@ -23,8 +22,9 @@
 // finite seeded init makes the shift, the window and the logaddexps each
 // show in out, which is what the parity checks run at.
 //
-//   Layout: that of csrc/pairhmm.cu at W = 128.  One block a row, 4 warps,
-//   one band cell a lane: lane w of the block holds cell w's M/I/D on the
+//   Layout: that of csrc/pairhmm.cu at W = 128, so that the sets' times
+//   split what the forward's step pays.  One block a row, 4 warps, one
+//   band cell a lane: lane w of the block holds cell w's M/I/D on the
 //   antidiagonals d-1 and d-2 and its out in registers, so P = 256 rows
 //   are 256 blocks over the card's 132 SMs.
 //   * The band shifts are constants of each phase: s1 = 0 for every d <=
@@ -37,16 +37,46 @@
 //     shared-memory word a warp, double-buffered by exchange parity, so
 //     one barrier a step serves.  Lane 0 of warp 0 takes NEG.  The sets
 //     without SHIFT have no cross-lane traffic and no barrier in the loop.
-//     One value a step beats two values and one barrier every second step
-//     of the steady phase (M of d-1 and d-2 handed on together before
-//     the even step): the value of d-2 then crosses on the chain beside
-//     that of d-1 instead of a step early, and the barriers saved buy
-//     nothing.
 //   * The row of qg is copied into shared memory once (4 KB at LQG =
 //     1024), in every set, as the TPU kernel's BlockSpec copies its block
 //     into VMEM; LOAD reads row[lo + w]: consecutive words, no bank
-//     conflict.
+//     conflict, and the compiler keeps the word in a register over the
+//     steps where lo stands.  A base kept in a register and slid across
+//     lanes where lo moves, as the forward does, would put a shuffle on
+//     those steps for what one shared read does.
+//   * The logaddexp works on the SFU in base 2 (ex2.approx, lg2.approx),
+//     in natural-log units with the scale inside: max + ln2 lg2(1 + ex2((x
+//     - max) log2 e) + ...), M's three terms in one (7 SFU operations a
+//     cell, not the nesting's 8).  NEG stays NEG exactly: every difference
+//     of NEGs is 0 and NEG + ln2 lg2(3) rounds to NEG.  Against the plain
+//     version (expf/log1pf, nested) the probe's out stays within 4.2e-7
+//     relative.
 //   * out stays in a register and is stored once, coalesced.
+//
+//   What bounds it (scripts/ablate_pairhmm.py on an NVIDIA H100 80GB HBM3
+//   at 700 W, P = 256, Dmax 1025; no profiler): with the logaddexps the
+//   SFU, 7 operations a cell at 16 a clock an SM: 0.056 ms over 132 SMs
+//   (0.058 as 256 blocks fall, two an SM on 124).  lse runs at 0.0737 ms
+//   (1.31x that floor), all three parts at 0.0901 (1.60x); the rest is
+//   the exchange's shuffle, shared word and barrier on the step's chain
+//   (the shift set alone 0.0345, ~38 cycles a step over the 0.0148 of the
+//   bare loop) and the window (load 0.0219).
+//
+//   Measured (ms for none / shift / load / lse / all, NEG and seeded
+//   starts alike), each step against the parent in the same call (PR 2's
+//   layout: a warp a row, four rows a block, four cells a lane, run-time
+//   shifts, expf/log1pf: 0.0220 / 0.0436-0.0439 / 0.0519-0.0523 /
+//   0.799-0.805 / 1.039-1.047): a block a row with the phase shifts and
+//   one exchange a step, expf/log1pf: 0.0148 / 0.0345 / 0.0219 / 0.2173 /
+//   0.2579, exact to the plain version at the probe; the base-2
+//   logaddexp, M's three terms in one: lse 0.0737, all 0.0901.  Dropped:
+//   two values and one barrier every second step in the steady phase (M
+//   of d-1 and d-2 handed on together before the even step: shift 0.0383,
+//   all 0.2683 with expf/log1pf, 0.0941 in base 2), since the value of d-2
+//   then crosses on the chain beside that of d-1 instead of a step early
+//   and the barriers saved buy nothing; the base-2 logaddexp in the TPU
+//   kernel's nesting (8 SFU operations a cell: lse 0.0831, all 0.1093-
+//   0.1112, 7.4e-7 relative at the probe).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -63,9 +93,36 @@ constexpr int kW = 128;            // the band of the TPU script
 constexpr int kWarps = kW / 32;    // one cell a lane
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShift = 1, kLoad = 2, kLse = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// logaddexp of two and of three terms in natural-log units on the SFU:
+// max + ln2 lg2(1 + ex2(-|a - b| log2 e)), and for three terms the max
+// plus ln2 lg2(1 + ex2 + ex2) of the other two (3 SFU operations, not 4)
 __device__ __forceinline__ float lae(float a, float b) {
-  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+  return fmaf(kLn2, lg2(1.0f + ex2(-fabsf(a - b) * kLog2e)), fmaxf(a, b));
+}
+
+__device__ __forceinline__ float lae3(float a, float b, float c) {
+  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
+  const float hi = fmaxf(hi_ab, c);
+  const float lo = fminf(lo_ab, c);
+  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
+  return fmaf(kLn2,
+              lg2(1.0f + ex2((mid - hi) * kLog2e) + ex2((lo - hi) * kLog2e)),
+              hi);
 }
 
 template <bool SHIFT, bool LOAD, bool LSE>
@@ -109,7 +166,7 @@ pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
     if (LOAD) em = row[lo + w] < 4 ? -0.1f : -3.0f;
     float M, I, D;
     if (LSE) {
-      M = em + lae(lae(Md - 0.1f, I2 - 3.0f), D2 - 3.0f);
+      M = em + lae3(Md - 0.1f, I2 - 3.0f, D2 - 3.0f);
       I = lae(Mu - 3.0f, I1 - 1.6f);
       D = lae(M1 - 3.0f, D1 - 1.6f);
     } else {
