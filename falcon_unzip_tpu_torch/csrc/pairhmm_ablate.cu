@@ -56,11 +56,12 @@
 //   What bounds it (scripts/ablate_pairhmm.py on an NVIDIA H100 80GB HBM3
 //   at 700 W, P = 256, Dmax 1025; no profiler): with the logaddexps the
 //   SFU, 7 operations a cell at 16 a clock an SM: 0.056 ms over 132 SMs
-//   (0.058 as 256 blocks fall, two an SM on 124).  lse runs at 0.0737 ms
-//   (1.31x that floor), all three parts at 0.0901 (1.60x); the rest is
-//   the exchange's shuffle, shared word and barrier on the step's chain
-//   (the shift set alone 0.0345, ~38 cycles a step over the 0.0148 of the
-//   bare loop) and the window (load 0.0219).
+//   (0.058 as 256 blocks fall, two an SM on 124).  lse runs at
+//   0.0729-0.0737 ms (1.30x that floor), all three parts at 0.0893-0.0901
+//   (1.59x); the rest is the exchange's shuffle, shared word and barrier
+//   on the step's chain (the shift set alone 0.0341-0.0345, ~38 cycles a
+//   step over the 0.0145-0.0148 of the bare loop) and the window (load
+//   0.0216-0.0219).
 //
 //   Measured (ms for none / shift / load / lse / all, NEG and seeded
 //   starts alike), each step against the parent in the same call (PR 2's
@@ -69,14 +70,14 @@
 //   0.799-0.805 / 1.039-1.047): a block a row with the phase shifts and
 //   one exchange a step, expf/log1pf: 0.0148 / 0.0345 / 0.0219 / 0.2173 /
 //   0.2579, exact to the plain version at the probe; the base-2
-//   logaddexp, M's three terms in one: lse 0.0737, all 0.0901.  Dropped:
-//   two values and one barrier every second step in the steady phase (M
-//   of d-1 and d-2 handed on together before the even step: shift 0.0383,
-//   all 0.2683 with expf/log1pf, 0.0941 in base 2), since the value of d-2
-//   then crosses on the chain beside that of d-1 instead of a step early
-//   and the barriers saved buy nothing; the base-2 logaddexp in the TPU
-//   kernel's nesting (8 SFU operations a cell: lse 0.0831, all 0.1093-
-//   0.1112, 7.4e-7 relative at the probe).
+//   logaddexp, M's three terms in one: lse 0.0729-0.0737, all
+//   0.0893-0.0901.  Dropped: two values and one barrier every second step
+//   in the steady phase (M of d-1 and d-2 handed on together before the
+//   even step: shift 0.0383, all 0.2683 with expf/log1pf, 0.0941 in base
+//   2), since the value of d-2 then crosses on the chain beside that of
+//   d-1 instead of a step early and the barriers saved buy nothing; the
+//   base-2 logaddexp in the TPU kernel's nesting (8 SFU operations a
+//   cell: lse 0.0831, all 0.1093-0.1112, 7.4e-7 relative at the probe).
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError().

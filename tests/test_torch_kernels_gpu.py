@@ -441,7 +441,7 @@ def test_arrow_kernel_many_candidates_on_card(cuda, C, mode, nw):
 
 
 @pytest.mark.parametrize("P", [1, 37, 256])
-@pytest.mark.parametrize("Dmax", [1, 2, 128, 129, 130, 131, 385, 1025])
+@pytest.mark.parametrize("Dmax", [1, 2, 33, 128, 129, 130, 131, 385, 1025])
 def test_ablation_kernel_equals_plain_on_card(cuda, Dmax, P):
     """From the NEG start (out NEG everywhere) bit-exact; at the probe,
     where each part changes out, bit-exact without the logaddexps and
@@ -469,3 +469,18 @@ def test_ablation_kernel_equals_plain_on_card(cuda, Dmax, P):
             torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
         else:
             assert torch.equal(k, p), feats             # tolerance 0
+
+
+def test_ablation_script_checks_each_set_on_card(cuda):
+    """``ablate_pairhmm.py --check``: each set timed from both starts and
+    held against the plain version, equal from NEG and within the probe's
+    bars; the sets with the logaddexps beside their SFU floor."""
+    from falcon_unzip_tpu_torch.scripts import ablate_pairhmm
+    rows = ablate_pairhmm.main(["--check"])
+    assert len(rows) == 5
+    for r in rows:
+        assert r["equal_from_neg"], r["feats"]
+        assert r["probe_max_rel_err"] <= (1e-5 if "lse" in r["feats"]
+                                          else 0.0), r["feats"]
+        assert r["ms"] > 0 and r["ms_seeded"] > 0
+        assert (r["sfu_ms"] > 0) == ("lse" in r["feats"])
