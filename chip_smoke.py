@@ -150,22 +150,6 @@ def _padded(np, seqs, width):
     return out, np.array([len(s) for s in seqs], np.int32)
 
 
-def _time_ms(torch, fn, reps):
-    """Device ms a call of fn, over reps calls after a warm-up, queued
-    behind a ~5 ms spin of the card so that no host time shows between
-    them."""
-    fn()
-    torch.cuda._sleep(10_000_000)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def _short_pairs(rng, P, bq, mode):
     """Mostly short pairs (60 .. 400 bases, so n + m is far under half of
     the schedule) beside eight full-length ones that keep the bucket's
@@ -188,6 +172,7 @@ def _unalignable_pairs(rng, P, bq, mode):
 
 
 def phase_parity_align(torch, np) -> dict:
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
     from falcon_unzip_tpu_torch.ops import banded_align as ba
@@ -260,7 +245,7 @@ def phase_parity_align(torch, np) -> dict:
             if not torch.equal(got, want):
                 _fail(f"traceback {name} epilogue differs at W={W} "
                       f"{mode} bq={bq}{tag}")
-            epi_ms[name] = _time_ms(torch, lambda: fused(
+            epi_ms[name] = time_ms(lambda: fused(
                 k["bp"], lo, *ends, max_steps=steps), 3)
         finite = int((k["dist"] < 1 << 20).sum())
         if tag == " short pairs" and \
@@ -268,9 +253,9 @@ def phase_parity_align(torch, np) -> dict:
             _fail(f"the short pairs are not short: Dmax {Dmax}")
         if tag == " unalignable pairs" and finite:
             _fail(f"{finite} of the unalignable pairs aligned")
-        wf_ms = _time_ms(torch, lambda: ba.banded_align_batch(
+        wf_ms = time_ms(lambda: ba.banded_align_batch(
             *args, **kw), 3)
-        tb_ms = _time_ms(torch, lambda: ba.traceback_batch(
+        tb_ms = time_ms(lambda: ba.traceback_batch(
             k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
         if tag:
             print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} "
@@ -328,6 +313,7 @@ def phase_parity_hmm(torch, np) -> None:
     """Pair-HMM forward kernel against pairhmm_forward_plain on the card
     at the bench shape (P=256, 512 bp windows, Dmax 1025), then on the edge
     batches of utils/hmm_batches.py in every build."""
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     from falcon_unzip_tpu_torch.ops import _kernels
@@ -357,7 +343,7 @@ def phase_parity_hmm(torch, np) -> None:
         err, rel, within = _bar(torch, k[ok], p[ok])
         if not within or not bool(torch.isfinite(k).all()):
             _fail(f"pairhmm W={W}: max abs err {err} rel {rel} over the bar")
-        ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 5)
+        ms = time_ms(lambda: ph.pairhmm_forward(*args, **kw), 5)
         work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
                                   LTG=trg.shape[1])
         bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
@@ -405,6 +391,7 @@ def phase_parity_arrow(torch, np) -> dict:
     utils/arrow_batches.py and a batch of C = 12 candidates a pair, in
     each warp count of the kernel (8 warps a block at P = 64, 2 at
     P = 256)."""
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.polisher import (PolisherConfig,
                                                          tier_table)
@@ -451,8 +438,8 @@ def phase_parity_arrow(torch, np) -> dict:
         err, rel, within = _bar(torch, k_all[ok], p_all[ok])
         if not within or not bool(torch.isfinite(k_all).all()):
             _fail(f"arrow {mode}: max abs err {err} rel {rel} over the bar")
-        ms = _time_ms(torch, lambda: ar.arrow_sweeps(*args, C=C), 5)
-        all_ms = _time_ms(torch, lambda: ar.arrow_splice(*args, C=C), 5)
+        ms = time_ms(lambda: ar.arrow_sweeps(*args, C=C), 5)
+        all_ms = time_ms(lambda: ar.arrow_splice(*args, C=C), 5)
         res[mode] = dict(ms=ms, plain_ms=plain_ms, err=err, rel=rel,
                          work=bench.arrow_work(n, m, Lq=L, LJ=L, C=C))
         print(f"[3 parity] arrow_splice {mode} P={P} Lq=LJ={L} C={C} | raw "
@@ -496,6 +483,7 @@ def phase_parity_ablate(torch, smi) -> dict:
     where every set gives its own out: the sets without the logaddexps
     equal, those with them within 1e-5 relative.  Each set is timed from
     the NEG start and from a seeded one."""
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
     from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
@@ -525,9 +513,9 @@ def phase_parity_ablate(torch, smi) -> dict:
             _fail(f"pairhmm_ablate {feats} at the probe: max abs err {err} "
                   f"rel {rel}")
         probe_outs.append(k)
-        ms = _time_ms(torch, lambda: pa.pairhmm_ablate(
+        ms = time_ms(lambda: pa.pairhmm_ablate(
             qg, neg, feats, Dmax=ab.Dmax), 20)
-        ms_seeded = _time_ms(torch, lambda: pa.pairhmm_ablate(
+        ms_seeded = time_ms(lambda: pa.pairhmm_ablate(
             qg, seeded, feats, Dmax=ab.Dmax), 20)
         res[feats] = dict(ms=ms, ms_seeded=ms_seeded, plain_ms=plain_ms,
                           err=err)
@@ -742,6 +730,7 @@ def phase_reforward(torch, np, d) -> dict:
     """Re-forward polish through the pair-HMM kernel on the golden
     fixture's contigs and raw-read AlnSet, against the same polish with
     the scorer's plain version, and the oracle window."""
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch.models.aligner import AlnSet
     from falcon_unzip_tpu_torch.models.polisher import (Polisher,
                                                          PolisherConfig,
@@ -821,7 +810,7 @@ def phase_reforward(torch, np, d) -> dict:
     ok = p > -1e29
     err = float((k[ok].double() - p[ok].double()).abs().max()) \
         if bool(ok.any()) else 0.0
-    ms = _time_ms(torch, lambda: ph.pairhmm_forward(*args, **kw), 10)
+    ms = time_ms(lambda: ph.pairhmm_forward(*args, **kw), 10)
     work = bench.pairhmm_work(b["n"], b["m"], Dmax=b["Dmax"], W=W,
                               LQG=args[0].shape[1], LTG=args[1].shape[1])
     bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]

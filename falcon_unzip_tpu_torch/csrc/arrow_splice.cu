@@ -39,11 +39,11 @@
 //   chosen by the launch: 8 while the 2P sweeps' warps fit four a
 //   scheduler (P <= 132 on an H100), else 2.
 //
-//   The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx): the
-//   params are scaled by log2(e) as they are staged and the outputs by
-//   ln(2) as they are stored; 7 SFU operations a cell.  Against the plain
-//   version (natural log, full-precision expf/log1pf) the raw outputs stay
-//   within 1.7e-5 relative at the polish's shape.
+//   The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx;
+//   logaddexp2.cuh): the params are scaled by log2(e) as they are staged
+//   and the outputs by ln(2) as they are stored; 7 SFU operations a cell.
+//   Against the plain version (natural log, full-precision expf/log1pf)
+//   the raw outputs stay within 1.7e-5 relative at the polish's shape.
 //
 //   What bounds it (measured with scripts/tune_arrow.py on an H100, no
 //   profiler): the step's dependent chain and its instruction stream, not
@@ -70,14 +70,13 @@
 
 #include <cuda_runtime.h>
 
+#include "logaddexp2.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPad = 4;          // seq.PAD: never matches
 constexpr int kMaxWarps = 8;     // the edge buffer's size
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kSlotBits = 0xffffffu;  // a column word: 24 slot bits,
 constexpr int kBaseShift = 24;             // then the template base
 
@@ -91,39 +90,6 @@ constexpr int kBaseShift = 24;             // then the template base
 //   [o_ext, + nxw LJ)       the further slot words (slots 24 + 32 x ..), by x
 //   then bytes: the read (Lq) and its tier ids (R, per-base mode)
 extern __shared__ float smem[];
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// logaddexp of two and of three terms in log2 units, on the SFU:
-// max + lg2(1 + ex2(-|a - b|)), and for three terms max + lg2(1 + ex2 +
-// ex2) of the other two (3 SFU operations, not 4).  NEG + NEG stays NEG:
-// ex2(0) = 1 and NEG + lg2(2) == NEG in float32.
-__device__ __forceinline__ float lae(float a, float b) {
-  return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
-}
-
-__device__ __forceinline__ float lae3(float a, float b, float c) {
-  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
-  const float hi = fmaxf(hi_ab, c);
-  const float lo = fminf(lo_ab, c);
-  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
-  return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
-}
-
-// An output value back in natural-log units; NEG stays NEG.
-__device__ __forceinline__ float to_ln(float v) {
-  return v < -1e29f ? kNeg : v * kLn2;
-}
 
 // The ten params of a row: tier k of the table (clamped like a gather), or
 // the pair's own.

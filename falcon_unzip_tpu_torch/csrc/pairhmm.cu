@@ -47,11 +47,12 @@
 //     guard bases, finite and bounded by the pair's length, so nothing
 //     overflows.  The corner therefore comes out of the same operations on
 //     the same inputs with or without those masks.
-//   * The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx):
-//     the params are scaled by log2(e) as they are read and the result by
-//     ln(2) as it is stored; M's three terms in one max + lg2(1 + ex2 +
-//     ex2), 7 SFU operations a cell.  Against the plain version (natural
-//     log, expf/log1pf) the log-likelihoods stay within 1.8e-5 relative.
+//   * The logaddexp works in base 2 on the SFU (ex2.approx, lg2.approx;
+//     logaddexp2.cuh): the params are scaled by log2(e) as they are read
+//     and the result by ln(2) as it is stored; M's three terms in one max
+//     + lg2(1 + ex2 + ex2), 7 SFU operations a cell.  Against the plain
+//     version (natural log, expf/log1pf) the log-likelihoods stay within
+//     1.8e-5 relative.
 //   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
 //     corner is read once after the loop, from the lane holding w = n -
 //     lo(n + m).
@@ -107,13 +108,12 @@
 
 #include <cuda_runtime.h>
 
+#include "logaddexp2.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStageLimit = 96 * 1024;  // rows longer than this stay global
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct HmmParams {
   float em_match, em_mis, em_ins, tMM, tMI, tMD, tIM, tII, tDM, tDD;
@@ -122,34 +122,6 @@ struct HmmParams {
 __device__ __forceinline__ int band_lo(int d, int W) {
   const int x = (d + 1) / 2 - W / 2;
   return x > 0 ? x : 0;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// logaddexp of two and of three terms in log2 units, on the SFU:
-// max + lg2(1 + ex2(-|a - b|)), and for three terms max + lg2(1 + ex2 +
-// ex2) of the other two (3 SFU operations, not 4).  NEG + NEG stays NEG:
-// ex2(0) = 1 and NEG + lg2(2) == NEG in float32.
-__device__ __forceinline__ float lae(float a, float b) {
-  return fmaxf(a, b) + lg2(1.0f + ex2(-fabsf(a - b)));
-}
-
-__device__ __forceinline__ float lae3(float a, float b, float c) {
-  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
-  const float hi = fmaxf(hi_ab, c);
-  const float lo = fminf(lo_ab, c);
-  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
-  return hi + lg2(1.0f + ex2(mid - hi) + ex2(lo - hi));
 }
 
 // A base for the match test: A C G T stay, every other code becomes
@@ -308,7 +280,7 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
 #pragma unroll
   for (int c = 0; c < C; ++c)
     if (w0 + c == wc) v = lae(lae(M[c], I[c]), D[c]);
-  if (tid == (hit ? wc / C : 0)) ll[p] = hit && v > -1e29f ? v * kLn2 : kNeg;
+  if (tid == (hit ? wc / C : 0)) ll[p] = hit ? to_ln(v) : kNeg;
 }
 
 template <int C, int NW>

@@ -44,24 +44,24 @@
 //     steps where lo stands.  A base kept in a register and slid across
 //     lanes where lo moves, as the forward does, would put a shuffle on
 //     those steps for what one shared read does.
-//   * The logaddexp works on the SFU in base 2 (ex2.approx, lg2.approx),
-//     in natural-log units with the scale inside: max + ln2 lg2(1 + ex2((x
-//     - max) log2 e) + ...), M's three terms in one (7 SFU operations a
-//     cell, not the nesting's 8).  NEG stays NEG exactly: every difference
-//     of NEGs is 0 and NEG + ln2 lg2(3) rounds to NEG.  Against the plain
-//     version (expf/log1pf, nested) the probe's out stays within 4.2e-7
-//     relative.
+//   * The logaddexp is the forward's (logaddexp2.cuh): base 2 on the SFU
+//     (ex2.approx, lg2.approx), M's three terms in one (7 SFU operations a
+//     cell, not the nesting's 8), in log2 units: the lse sets scale the
+//     start and the step's constants by log2(e) as they are read and out
+//     by ln(2) as it is stored, so that their chain is the forward's.  NEG
+//     stays NEG exactly: scaled it stays below -1e29, NEG + lg2(3) rounds
+//     to NEG, and to_ln maps out back to NEG.  The sets without the
+//     logaddexps keep natural units (a scale of 1) and are bit-exact.
 //   * out stays in a register and is stored once, coalesced.
 //
 //   What bounds it (scripts/ablate_pairhmm.py on an NVIDIA H100 80GB HBM3
 //   at 700 W, P = 256, Dmax 1025; no profiler): with the logaddexps the
 //   SFU, 7 operations a cell at 16 a clock an SM: 0.056 ms over 132 SMs
 //   (0.058 as 256 blocks fall, two an SM on 124).  lse runs at
-//   0.0729-0.0737 ms (1.30x that floor), all three parts at 0.0893-0.0901
-//   (1.59x); the rest is the exchange's shuffle, shared word and barrier
-//   on the step's chain (the shift set alone 0.0341-0.0345, ~38 cycles a
-//   step over the 0.0145-0.0148 of the bare loop) and the window (load
-//   0.0216-0.0219).
+//   0.0721-0.0722 ms (1.28x that floor), all three parts at 0.0915-0.0916
+//   (1.63x); the rest is the exchange's shuffle, shared word and barrier
+//   on the step's chain (the shift set alone 0.0341, ~38 cycles a step
+//   over the 0.0145 of the bare loop) and the window (load 0.0216).
 //
 //   Measured (ms for none / shift / load / lse / all, NEG and seeded
 //   starts alike), each step against the parent in the same call (PR 2's
@@ -70,8 +70,12 @@
 //   0.799-0.805 / 1.039-1.047): a block a row with the phase shifts and
 //   one exchange a step, expf/log1pf: 0.0148 / 0.0345 / 0.0219 / 0.2173 /
 //   0.2579, exact to the plain version at the probe; the base-2
-//   logaddexp, M's three terms in one: lse 0.0729-0.0737, all
-//   0.0893-0.0901.  Dropped: two values and one barrier every second step
+//   logaddexp, M's three terms in one, first in natural-log units with
+//   the scale inside (its own copy of the logaddexp): lse 0.0729-0.0737,
+//   all 0.0893-0.0901; then the forward's log2 units (logaddexp2.cuh),
+//   against that in the same call: lse 0.0721-0.0722 (0.0730), all
+//   0.0915-0.0916 (0.0893-0.0894), kept so that the lse sets time the
+//   forward's chain.  Dropped: two values and one barrier every second step
 //   in the steady phase (M of d-1 and d-2 handed on together before the
 //   even step: shift 0.0383, all 0.2683 with expf/log1pf, 0.0941 in base
 //   2), since the value of d-2 then crosses on the chain beside that of
@@ -87,45 +91,14 @@
 
 #include <cuda_runtime.h>
 
+#include "logaddexp2.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
 constexpr int kW = 128;            // the band of the TPU script
 constexpr int kWarps = kW / 32;    // one cell a lane
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShift = 1, kLoad = 2, kLse = 4;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// logaddexp of two and of three terms in natural-log units on the SFU:
-// max + ln2 lg2(1 + ex2(-|a - b| log2 e)), and for three terms the max
-// plus ln2 lg2(1 + ex2 + ex2) of the other two (3 SFU operations, not 4)
-__device__ __forceinline__ float lae(float a, float b) {
-  return fmaf(kLn2, lg2(1.0f + ex2(-fabsf(a - b) * kLog2e)), fmaxf(a, b));
-}
-
-__device__ __forceinline__ float lae3(float a, float b, float c) {
-  const float hi_ab = fmaxf(a, b), lo_ab = fminf(a, b);
-  const float hi = fmaxf(hi_ab, c);
-  const float lo = fminf(lo_ab, c);
-  const float mid = fmaxf(lo_ab, fminf(hi_ab, c));
-  return fmaf(kLn2,
-              lg2(1.0f + ex2((mid - hi) * kLog2e) + ex2((lo - hi) * kLog2e)),
-              hi);
-}
-
 template <bool SHIFT, bool LOAD, bool LSE>
 __global__ void __launch_bounds__(kW)
 pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
@@ -139,10 +112,14 @@ pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
   const int32_t* src = qg + static_cast<size_t>(blockIdx.x) * LQG;
   for (int k = w; k < LQG; k += kW) row[k] = src[k];
 
+  // the sets with the logaddexps carry log2 units, as the forward does:
+  // the start and the step's constants scaled by log2(e) as they are read,
+  // out by ln(2) as it is stored; the others natural units (kS = 1)
+  constexpr float kS = LSE ? kLog2e : 1.0f;
   const float* seed = init + static_cast<size_t>(blockIdx.x) * kW;
-  float M1 = seed[w], I1 = M1, D1 = M1, M2 = M1, I2 = M1, D2 = M1;
+  float M1 = seed[w] * kS, I1 = M1, D1 = M1, M2 = M1, I2 = M1, D2 = M1;
   // the shifted M planes, M[w - 1] on d-1 and d-2 (NEG at w = 0)
-  float uM1 = w > 0 ? seed[w - 1] : kNeg;
+  float uM1 = w > 0 ? seed[w - 1] * kS : kNeg;
   float uM2 = uM1;
   float acc = kNeg;
   __syncthreads();
@@ -163,13 +140,13 @@ pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
     constexpr bool S = SHIFT && decltype(s_tag)::value;
     const float Md = S ? uM2 : M2;
     const float Mu = S ? uM1 : M1;
-    float em = -0.1f;
-    if (LOAD) em = row[lo + w] < 4 ? -0.1f : -3.0f;
+    float em = -0.1f * kS;
+    if (LOAD) em = row[lo + w] < 4 ? -0.1f * kS : -3.0f * kS;
     float M, I, D;
     if (LSE) {
-      M = em + lae3(Md - 0.1f, I2 - 3.0f, D2 - 3.0f);
-      I = lae(Mu - 3.0f, I1 - 1.6f);
-      D = lae(M1 - 3.0f, D1 - 1.6f);
+      M = em + lae3(Md - 0.1f * kS, I2 - 3.0f * kS, D2 - 3.0f * kS);
+      I = lae(Mu - 3.0f * kS, I1 - 1.6f * kS);
+      D = lae(M1 - 3.0f * kS, D1 - 1.6f * kS);
     } else {
       M = em + fmaxf(fmaxf(Md, I2), D2);
       I = fmaxf(Mu, I1);
@@ -198,7 +175,7 @@ pairhmm_ablate_kernel(const int32_t* __restrict__ qg,
   }
   if (d < Dmax) step((d + 1) / 2 - kW / 2, Keep{});
 
-  out[static_cast<size_t>(blockIdx.x) * kW + w] = acc;
+  out[static_cast<size_t>(blockIdx.x) * kW + w] = LSE ? to_ln(acc) : acc;
 }
 
 template <bool SHIFT, bool LOAD, bool LSE>

@@ -2,9 +2,9 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface at first use (all sources at once, one
-``nvcc`` process each), cached by content hash in
-``falcon_unzip_tpu_torch/_build/`` (listed in ``.gitignore``), and bound
-with ctypes.  Each C entry point launches on the calling thread's current
+``nvcc`` process each), cached by the hash of its content and of the
+shared header's (``HEADERS``) in ``falcon_unzip_tpu_torch/_build/``
+(listed in ``.gitignore``), and bound with ctypes.  Each C entry point launches on the calling thread's current
 stream of the tensor's device and returns ``cudaGetLastError()``; a
 nonzero code raises.  A failed build raises: there is no fallback.
 
@@ -26,6 +26,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", f"{stem}.cu")
            for stem in ("banded_align", "pairhmm", "arrow_splice",
                         "pairhmm_ablate")]
+# included by the sources: their contents join every source's hash
+HEADERS = [os.path.join(_PKG, "csrc", "logaddexp2.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -108,8 +110,9 @@ def build() -> dict:
     for src in SOURCES:
         stem = os.path.splitext(os.path.basename(src))[0]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        with open(src, "rb") as fh:
-            h.update(fh.read())
+        for path in (*HEADERS, src):
+            with open(path, "rb") as fh:
+                h.update(fh.read())
         lib = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
         libs[stem] = lib
         if os.path.exists(lib):

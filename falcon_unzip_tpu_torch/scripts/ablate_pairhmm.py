@@ -1,6 +1,6 @@
 """Ablation timing of the pair-HMM step on one NVIDIA GPU.
 
-    python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm [--check]
+    python -m falcon_unzip_tpu_torch.scripts.ablate_pairhmm
     python falcon_unzip_tpu_torch/scripts/ablate_pairhmm.py --root OTHER_CHECKOUT
 
 The twin of the reference's ``scripts/ablate_pallas.py``: the
@@ -11,18 +11,17 @@ at the same constants (P=256 rows, W=128, Dmax=1025, LQG=1024, seeded
 int32 bases 0..4).  Each set is timed twice: from the reference's start
 (every state plane NEG, so every exp and log1p sees the same argument)
 and from a seeded finite start (``seeded_init``: the values vary as in a
-real forward).  Each time is taken with CUDA events over REPS launches
-after one warm-up launch, queued behind a spin of the card so that the
-host's time a call does not show, and printed in ms and microseconds per
-antidiagonal step beside the set's SFU floor (``bench.ablate_work``) and
-the card's name and power limit.
+real forward).  Each time is taken with ``common.time_ms`` over REPS
+launches, queued behind a spin of the card so that the host's time a
+call does not show, and printed in ms and microseconds per antidiagonal
+step beside the set's SFU floor (``bench.ablate_work``) and the card's
+name and power limit.  The kernel is held against its plain version by
+``chip_smoke.py`` and the GPU tests, not here.
 
-``--check`` also holds each set against ``pairhmm_ablate_plain``: equal
-from the NEG start, and the largest absolute and relative error at the
-probe (``probe_inputs``, seed 1).  ``--root`` times another checkout's
-package (it needs only ``ops.pairhmm_ablate``) with the same inputs, so
-that two designs are compared inside one run on one card; the SFU floors
-come from this checkout.  Needs a GPU: without one it raises.
+``--root`` times another checkout's package (it needs only
+``ops.pairhmm_ablate``) with the same inputs, so that two designs are
+compared inside one run on one card; the SFU floors come from this
+checkout.  Needs a GPU: without one it raises.
 """
 from __future__ import annotations
 
@@ -33,9 +32,13 @@ import sys
 import numpy as np
 import torch
 
+if __name__ == "__main__":      # run as a file: this checkout first
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+from falcon_unzip_tpu_torch.scripts.common import load_package, time_ms
+
 P, W, Dmax, LQG = 256, 128, 1025, 1024
 REPS = 20
-SPIN_CYCLES = 10_000_000    # ~5 ms at the H100's 1.98 GHz
 
 
 def rows(seed: int = 0) -> np.ndarray:
@@ -44,42 +47,11 @@ def rows(seed: int = 0) -> np.ndarray:
     return rng.integers(0, 5, size=(P, LQG)).astype(np.int32)
 
 
-def _time_ms(pa, qg, init, feats) -> float:
-    pa.pairhmm_ablate(qg, init, feats, Dmax=Dmax)          # warm-up
-    # the launches queue behind a spin of the card, so that the host's
-    # time a call (tens of microseconds, more than the shortest sets'
-    # kernels) leaves no gap between them
-    torch.cuda._sleep(SPIN_CYCLES)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(REPS):
-        pa.pairhmm_ablate(qg, init, feats, Dmax=Dmax)
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS
-
-
-def _errors(pa, qg, neg, probe, feats) -> dict:
-    """NEG-start equality and the probe's errors against the plain
-    version."""
-    k = pa.pairhmm_ablate(qg, neg, feats, Dmax=Dmax)
-    p = pa.pairhmm_ablate_plain(qg, neg, feats, Dmax=Dmax)
-    k2 = pa.pairhmm_ablate(*probe, feats, Dmax=Dmax).double()
-    p2 = pa.pairhmm_ablate_plain(*probe, feats, Dmax=Dmax).double()
-    diff = (k2 - p2).abs()
-    return {"equal_from_neg": bool(torch.equal(k, p)),
-            "probe_max_abs_err": float(diff.max()),
-            "probe_max_rel_err": float((diff / p2.abs().clamp_min(1e-30))
-                                       .max())}
-
-
-def measure(pa=None, check: bool = False) -> list:
+def measure(pa=None) -> list:
     """[{feats, ms, us_per_step, ms_seeded, us_per_step_seeded}] for the
     five feature sets on the card: ms from the NEG start, ms_seeded from
-    the seeded one; with ``check`` the errors of ``_errors`` too.  ``pa``
-    is the ``ops.pairhmm_ablate`` module timed (this package's by
-    default)."""
+    the seeded one.  ``pa`` is the ``ops.pairhmm_ablate`` module timed
+    (this package's by default)."""
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the ablation needs a GPU")
     if pa is None:
@@ -88,17 +60,14 @@ def measure(pa=None, check: bool = False) -> list:
     qg = torch.from_numpy(rows()).to(dev)
     starts = {"": torch.from_numpy(pa.neg_init(P, W)).to(dev),
               "_seeded": torch.from_numpy(pa.seeded_init(P, W, 0)).to(dev)}
-    probe = [torch.from_numpy(x).to(dev)
-             for x in pa.probe_inputs(P, LQG, W, 1)]
     out = []
     for feats in pa.FEATURE_SETS:
         r = {"feats": list(feats)}
         for tag, init in starts.items():
-            ms = _time_ms(pa, qg, init, feats)
+            ms = time_ms(lambda: pa.pairhmm_ablate(qg, init, feats,
+                                                   Dmax=Dmax), REPS)
             r["ms" + tag] = ms
             r["us_per_step" + tag] = 1e3 * ms / Dmax
-        if check:
-            r.update(_errors(pa, qg, starts[""], probe, feats))
         out.append(r)
     return out
 
@@ -107,37 +76,22 @@ def main(argv=()) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
                     help="time the package of this checkout instead")
-    ap.add_argument("--check", action="store_true",
-                    help="hold each set against the plain version")
     args = ap.parse_args(argv)
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    if here not in sys.path:
-        sys.path.insert(0, here)
     # the work counts come from this checkout whichever package is timed
     from falcon_unzip_tpu_torch import bench
-    if args.root is not None:
-        sys.path.insert(0, os.path.abspath(args.root))
-        for name in [k for k in sys.modules
-                     if k.split(".")[0] == "falcon_unzip_tpu_torch"]:
-            del sys.modules[name]
+    load_package(args.root)
     from falcon_unzip_tpu_torch.ops import pairhmm_ablate as pa
-    res = measure(pa, args.check)
+    res = measure(pa)
     card = bench.card_label()
     package = os.path.dirname(os.path.dirname(os.path.abspath(pa.__file__)))
     for r in res:
         r["sfu_ms"] = bench.ablate_work(r["feats"], P=P, Dmax=Dmax, W=W,
                                         LQG=LQG)["sfu_ms"]
-        err = ""
-        if args.check:
-            err = (f" | {'equal' if r['equal_from_neg'] else 'DIFFERENT'} "
-                   f"from NEG, probe max abs err {r['probe_max_abs_err']:.3g}"
-                   f" rel {r['probe_max_rel_err']:.3g}")
         print(f"{tuple(r['feats'])}: {r['ms']:.4f} ms "
               f"({r['us_per_step']:.4f} us/step for {P} rows) from NEG, "
               f"{r['ms_seeded']:.4f} ms ({r['us_per_step_seeded']:.4f} "
               f"us/step) from the seeded start, SFU floor "
-              f"{r['sfu_ms']:.4f} ms{err} | {package} | {card}", flush=True)
+              f"{r['sfu_ms']:.4f} ms | {package} | {card}", flush=True)
     return res
 
 

@@ -32,21 +32,14 @@ import sys
 import numpy as np
 import torch
 
+if __name__ == "__main__":      # run as a file: this checkout first
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+from falcon_unzip_tpu_torch.scripts.common import load_package, time_ms
+
 L, C = 640, 4
 PS = (16, 64, 256, 512)
 REPS = 10
-
-
-def _time_ms(fn) -> float:
-    fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(REPS):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS
 
 
 def measure(ar, kn, ab) -> dict:
@@ -66,8 +59,8 @@ def measure(ar, kn, ab) -> dict:
             out["max_rel_err"][f"{mode} P={P}"] = err
             if not err <= 1e-3:
                 raise SystemExit(f"{mode} P={P}: rel err {err} over 1e-3")
-            out["ms"][f"{mode} P={P}"] = _time_ms(
-                lambda: kn.arrow_sweeps(*a, C=C))
+            out["ms"][f"{mode} P={P}"] = time_ms(
+                lambda: kn.arrow_sweeps(*a, C=C), REPS, spin=False)
     return out
 
 
@@ -76,17 +69,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", default=None,
                     help="time the package of this checkout instead")
     args = ap.parse_args(argv)
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    if here not in sys.path:
-        sys.path.insert(0, here)
     # the batches come from this checkout whichever package is timed
     from falcon_unzip_tpu_torch.utils import arrow_batches as ab
-    if args.root is not None:
-        sys.path.insert(0, os.path.abspath(args.root))
-        for name in [k for k in sys.modules
-                     if k.split(".")[0] == "falcon_unzip_tpu_torch"]:
-            del sys.modules[name]
+    load_package(args.root)
     from falcon_unzip_tpu_torch.bench import card_label
     from falcon_unzip_tpu_torch.ops import _kernels
     from falcon_unzip_tpu_torch.ops import arrow as ar

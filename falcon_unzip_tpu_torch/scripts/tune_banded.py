@@ -35,20 +35,13 @@ import sys
 import numpy as np
 import torch
 
+if __name__ == "__main__":      # run as a file: this checkout first
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+from falcon_unzip_tpu_torch.scripts.common import load_package, time_ms
+
 MODE, BQ = "tglocal", 2048
 REPS = 10
-
-
-def _time_ms(fn) -> float:
-    fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(REPS):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS
 
 
 def _inputs(pkg, P: int, seed: int, W: int):
@@ -93,20 +86,20 @@ def measure(pkg, W: int = 256) -> dict:
     for key in ("dist", "end_i", "end_j", "bp"):
         if not torch.equal(got[key], plain[key]):
             raise SystemExit(f"wavefront {key} differs")
-    out["wavefront_ms"] = _time_ms(lambda: kn.banded_wavefront(
-        *args, Dmax=Dmax, want_bp=True, **kw))
+    out["wavefront_ms"] = time_ms(lambda: kn.banded_wavefront(
+        *args, Dmax=Dmax, want_bp=True, **kw), REPS, spin=False)
     ends = (plain["end_i"], plain["end_j"])
     moves_p = ba.traceback_batch_plain(plain["bp"], lo, *ends,
                                        max_steps=steps)
     moves = ba.traceback_batch(plain["bp"], lo, *ends, max_steps=steps)
     if not torch.equal(moves, moves_p):
         raise SystemExit("traceback moves differ")
-    out["traceback_ms"]["moves"] = _time_ms(lambda: ba.traceback_batch(
-        plain["bp"], lo, *ends, max_steps=steps))
-    out["torch_chain_ms"]["packed"] = _time_ms(lambda: ba._combine_results(
-        ba.pack_moves2(moves), plain["dist"], *ends))
-    out["torch_chain_ms"]["summary"] = _time_ms(lambda: ba._summarize_moves(
-        moves, plain["dist"], *ends))
+    out["traceback_ms"]["moves"] = time_ms(lambda: ba.traceback_batch(
+        plain["bp"], lo, *ends, max_steps=steps), REPS, spin=False)
+    out["torch_chain_ms"]["packed"] = time_ms(lambda: ba._combine_results(
+        ba.pack_moves2(moves), plain["dist"], *ends), REPS, spin=False)
+    out["torch_chain_ms"]["summary"] = time_ms(lambda: ba._summarize_moves(
+        moves, plain["dist"], *ends), REPS, spin=False)
     if has_epi:
         for name in ("packed", "summary"):
             fused = getattr(ba, f"traceback_{name}")
@@ -116,15 +109,17 @@ def measure(pkg, W: int = 256) -> dict:
                         max_steps=steps)
             if not torch.equal(got, want):
                 raise SystemExit(f"traceback {name} epilogue differs")
-            out["traceback_ms"][name] = _time_ms(lambda: fused(
-                plain["bp"], lo, plain["dist"], *ends, max_steps=steps))
+            out["traceback_ms"][name] = time_ms(lambda: fused(
+                plain["bp"], lo, plain["dist"], *ends, max_steps=steps),
+                REPS, spin=False)
     for P in (256, 512, 1024, 2048):
         a, lo_p, kw_p, D = _inputs(pkg, P, 2024 + P, W)
         res = kn.banded_wavefront(*a, Dmax=D, want_bp=True, **kw_p)
-        wf = _time_ms(lambda: kn.banded_wavefront(*a, Dmax=D, want_bp=True,
-                                                  **kw_p))
-        tb = _time_ms(lambda: ba.traceback_batch(
-            res["bp"], lo_p, res["end_i"], res["end_j"], max_steps=D - 1))
+        wf = time_ms(lambda: kn.banded_wavefront(*a, Dmax=D, want_bp=True,
+                                                 **kw_p), REPS, spin=False)
+        tb = time_ms(lambda: ba.traceback_batch(
+            res["bp"], lo_p, res["end_i"], res["end_j"], max_steps=D - 1),
+            REPS, spin=False)
         out["by_P"][str(P)] = {
             "Dmax": D, "wavefront_ms": wf, "wavefront_us_per_pair":
             1e3 * wf / P, "traceback_ms": tb, "traceback_us_per_pair":
@@ -139,11 +134,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", default=None,
                     help="time the package of this checkout instead")
     args = ap.parse_args(argv)
-    if args.root is not None:
-        sys.path.insert(0, os.path.abspath(args.root))
-        for name in [k for k in sys.modules
-                     if k.split(".")[0] == "falcon_unzip_tpu_torch"]:
-            del sys.modules[name]
+    load_package(args.root)
     from falcon_unzip_tpu_torch.bench import card_label
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
     from falcon_unzip_tpu_torch.ops import _kernels

@@ -38,22 +38,15 @@ import sys
 import numpy as np
 import torch
 
+if __name__ == "__main__":      # run as a file: this checkout first
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+from falcon_unzip_tpu_torch.scripts.common import load_package, time_ms
+
 WIN = 512
 WS = (64, 128, 256)
 PS = (16, 64, 256, 1024, 4096)
 REPS = 10
-
-
-def _time_ms(fn) -> float:
-    fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(REPS):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS
 
 
 def _shape_batch(hb, P: int, Lq: int, Lt: int) -> dict:
@@ -104,7 +97,7 @@ def measure(ph, hb, bench, shapes, cells: int = 0) -> dict:
         out["max_rel_err"][key] = err
         if not err <= 1e-3:
             raise SystemExit(f"{key}: rel err {err} over 1e-3")
-        out["ms"][key] = _time_ms(fwd)
+        out["ms"][key] = time_ms(fwd, REPS, spin=False)
         work = bench.pairhmm_work(b["n"], b["m"], Dmax=b["Dmax"], W=W,
                                   LQG=args[0].shape[1], LTG=args[1].shape[1])
         out["bound_ms"][key] = bench.bound_ms(work["ops"], work["bytes"],
@@ -123,19 +116,11 @@ def main(argv=None) -> dict:
                     help="launch W = 128 with this many cells a lane")
     args = ap.parse_args(argv)
     shapes = [tuple(int(x) for x in s.split(":")) for s in args.shape]
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    if here not in sys.path:
-        sys.path.insert(0, here)
     # the batches and the work counts come from this checkout whichever
     # package is timed
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.utils import hmm_batches as hb
-    if args.root is not None:
-        sys.path.insert(0, os.path.abspath(args.root))
-        for name in [k for k in sys.modules
-                     if k.split(".")[0] == "falcon_unzip_tpu_torch"]:
-            del sys.modules[name]
+    load_package(args.root)
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
     if not torch.cuda.is_available():
         raise RuntimeError("tune_pairhmm needs a CUDA device")

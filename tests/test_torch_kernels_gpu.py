@@ -469,18 +469,3 @@ def test_ablation_kernel_equals_plain_on_card(cuda, Dmax, P):
             torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
         else:
             assert torch.equal(k, p), feats             # tolerance 0
-
-
-def test_ablation_script_checks_each_set_on_card(cuda):
-    """``ablate_pairhmm.py --check``: each set timed from both starts and
-    held against the plain version, equal from NEG and within the probe's
-    bars; the sets with the logaddexps beside their SFU floor."""
-    from falcon_unzip_tpu_torch.scripts import ablate_pairhmm
-    rows = ablate_pairhmm.main(["--check"])
-    assert len(rows) == 5
-    for r in rows:
-        assert r["equal_from_neg"], r["feats"]
-        assert r["probe_max_rel_err"] <= (1e-5 if "lse" in r["feats"]
-                                          else 0.0), r["feats"]
-        assert r["ms"] > 0 and r["ms_seeded"] > 0
-        assert (r["sfu_ms"] > 0) == ("lse" in r["feats"])
