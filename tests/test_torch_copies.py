@@ -63,6 +63,7 @@ DEFS = {
         "Polisher.polish_all", "QV_CAP", "_QV_TABLE", "_QV_TABLE_N",
         "_qv_table", "QV_TEMPLATE", "_qv_from_votes", "_stitch"],
     "pipeline/quiver.py": ["_phase_route_mask", "_emit"],
+    "models/consensus.py": ["ConsensusConfig", "_bucket"],
     "parallel/distributed.py": ["pack_arrays", "unpack_arrays"],
     "io/bamlite.py": [
         "BGZF_EOF", "_NIB2CODE", "_CODE2NIB", "CIGAR_OPS", "bgzf_decompress",
