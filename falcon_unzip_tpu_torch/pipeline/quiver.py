@@ -7,10 +7,11 @@ reference: raw reads are aligned to the combined p_ctg + h_ctg reference
 polished with the windowed vote + Arrow splice stage (2-polish), the
 splice sweeps on ``device``.  With one device the reference builds no
 mesh, so the splicer is the plain ``ArrowSplicer`` and the votes are
-built on the host; that path is the one mirrored here.  Not ported yet
-(each raises NotImplementedError): multi-host runs
-(``cfg.mesh.multihost``), profiler traces (``cfg.profile_dir``) and a
-mesh of more than one device (``cfg.mesh.n_devices > 1``).
+built on the host; that path is the one mirrored here.  With
+``cfg.profile_dir`` set the whole run is traced (``utils.profiling``).
+Not ported yet (each raises NotImplementedError): multi-host runs
+(``cfg.mesh.multihost``) and a mesh of more than one device
+(``cfg.mesh.n_devices > 1``).
 
 Outputs (under <out>/4-polish/):
   cns_p_ctg.fasta / cns_p_ctg.fastq
@@ -49,12 +50,18 @@ def run_quiver(cfg: PipelineConfig, device) -> dict:
     3-unzip outputs in ``cfg.out_dir``."""
     if cfg.mesh.multihost:
         raise NotImplementedError("multi-host runs are not ported yet")
-    if cfg.profile_dir:
-        raise NotImplementedError("profiler traces are not ported yet")
     if cfg.mesh.n_devices > 1:
         raise NotImplementedError("a mesh of more than one device is not "
                                   "ported yet")
     dev = _device.resolve(device)
+    if cfg.profile_dir:  # torch.profiler trace around the whole run
+        from ..utils.profiling import device_trace
+        with device_trace(cfg.profile_dir, dev, name="quiver"):
+            return _run_quiver(cfg, dev)
+    return _run_quiver(cfg, dev)
+
+
+def _run_quiver(cfg: PipelineConfig, dev) -> dict:
     unzip_dir = os.path.join(cfg.out_dir, "3-unzip")
     out = os.path.join(cfg.out_dir, "4-polish")
     os.makedirs(out, exist_ok=True)

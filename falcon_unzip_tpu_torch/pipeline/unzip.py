@@ -2,10 +2,11 @@
 
 Port of ``falcon_unzip_tpu.pipeline.unzip`` for a single process on one
 device.  Same stages, Stage markers, resume, persisted AlnSet and overlap
-prefetch as the reference; every device step runs on ``device``.  Not
-ported yet (each raises NotImplementedError): multi-host runs
-(``cfg.mesh.multihost``), profiler traces (``cfg.profile_dir``) and a
-mesh of more than one device (``cfg.mesh.n_devices > 1``).
+prefetch as the reference; every device step runs on ``device``.  With
+``cfg.profile_dir`` set the whole run is traced (``utils.profiling``).
+Not ported yet (each raises NotImplementedError): multi-host runs
+(``cfg.mesh.multihost``) and a mesh of more than one device
+(``cfg.mesh.n_devices > 1``).
 
 Outputs (under <out>/3-unzip/):
   all_p_ctg.fa, all_h_ctg.fa         — primary contigs + haplotigs
@@ -44,12 +45,18 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
     """Run 3-unzip on ``device`` (e.g. "cuda" or "cpu")."""
     if cfg.mesh.multihost:
         raise NotImplementedError("multi-host runs are not ported yet")
-    if cfg.profile_dir:
-        raise NotImplementedError("profiler traces are not ported yet")
     if cfg.mesh.n_devices > 1:
         raise NotImplementedError("a mesh of more than one device is not "
                                   "ported yet")
     dev = _device.resolve(device)
+    if cfg.profile_dir:  # torch.profiler trace around the whole run
+        from ..utils.profiling import device_trace
+        with device_trace(cfg.profile_dir, dev, name="unzip"):
+            return _run_unzip(cfg, dev)
+    return _run_unzip(cfg, dev)
+
+
+def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     cfg.validate()
     out_root = cfg.out_dir
     out = os.path.join(out_root, "3-unzip")

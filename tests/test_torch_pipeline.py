@@ -184,10 +184,6 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         run_unzip(cfg, device="cpu")
     cfg = _cfg(str(tmp_path), "out")
-    cfg.profile_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError):
-        run_unzip(cfg, device="cpu")
-    cfg = _cfg(str(tmp_path), "out")
     cfg.mesh.multihost = True
     with pytest.raises(NotImplementedError):
         run_unzip(cfg, device="cpu")

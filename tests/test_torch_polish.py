@@ -297,10 +297,6 @@ def test_unported_quiver_options_raise(tmp_path):
         setattr(cfg.mesh, field, value)
         with pytest.raises(NotImplementedError):
             port_quiver.run_quiver(cfg, device="cpu")
-    cfg = _cfg(str(tmp_path), str(tmp_path / "out"))
-    cfg.profile_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError):
-        port_quiver.run_quiver(cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
         port_quiver.run_quiver(_cfg(str(tmp_path), str(tmp_path / "out")),
                                device="cpu")
