@@ -10,9 +10,6 @@ a writer able to emit valid BAM files for per-contig partitions.
 
 The on-device data plane never touches BAM — records are converted to
 packed int8 tensors at this boundary.
-
-The port keeps the codec only: the per-contig partitioner
-(``select_reads_by_contig``) waits for the port of ``parallel/``.
 """
 from __future__ import annotations
 
@@ -205,3 +202,33 @@ def write_bam(path: str, bam: BamFile) -> None:
 
 def iter_bam(path: str) -> Iterator[BamRecord]:
     yield from read_bam(path).records
+
+
+def select_reads_by_contig(path: str, read_to_ctg: dict[str, int],
+                           out_pattern: str, n_ctg: int) -> list[str]:
+    """Partition a BAM into per-contig BAMs (select_reads_from_bam role).
+
+    out_pattern: e.g. "part/ctg_{}.bam".  Unassigned reads are dropped.
+    The read->contig-owner routing runs through the mesh all_to_all
+    regroup (parallel.collectives.regroup_partition — the reference's
+    `max_n_open_files` two-stage partition re-mapped per SURVEY.md §2c
+    row 5); records land in input order, so the output bytes match a
+    host scan exactly.  Partitions are buffered in memory (columnar
+    framework scale; no open-file budget needed).
+    """
+    import numpy as np
+
+    from ..parallel.collectives import regroup_partition
+
+    bam = read_bam(path)
+    ctg_ids = np.array([read_to_ctg.get(rec.name, -1)
+                        for rec in bam.records], np.int64)
+    outs = []
+    for ctg, idx in enumerate(regroup_partition(ctg_ids, n_ctg)):
+        if not len(idx):
+            continue
+        out_path = out_pattern.format(ctg)
+        write_bam(out_path, BamFile(text=bam.text, refs=bam.refs,
+                                    records=[bam.records[i] for i in idx]))
+        outs.append(out_path)
+    return outs

@@ -24,7 +24,8 @@ MODULES = ["coords.py", "models/unzipper.py", "io/overlaps.py",
            "oracle/hmm.py", "oracle/consensus.py", "graph/__init__.py",
            "graph/string_graph.py", "ops/kmer_index.py",
            "parallel/__init__.py", "parallel/checkpoint.py",
-           "parallel/dataflow.py", "utils/metrics.py", "utils/simulate.py"]
+           "parallel/dataflow.py", "utils/metrics.py", "utils/simulate.py",
+           "io/bamlite.py", "cli/compat.py"]
 
 # the native IO library's build and sources, byte for byte
 NATIVE = ["native/Makefile", "native/src/fastx.cpp", "native/src/bam.cpp"]
@@ -69,7 +70,10 @@ DEFS = {
     "io/bamlite.py": [
         "BGZF_EOF", "_NIB2CODE", "_CODE2NIB", "CIGAR_OPS", "bgzf_decompress",
         "bgzf_compress", "BamRecord", "BamFile", "read_bam", "write_bam",
-        "iter_bam"],
+        "iter_bam", "select_reads_by_contig"],
+    "cli/__init__.py": [
+        "_cmd_gen_gfa", "_cmd_readmap", "_parse_phased_reads",
+        "_cmd_select_reads", "_cmd_bam2m4"],
 }
 
 
@@ -125,14 +129,3 @@ def test_native_source_is_byte_equal(rel):
             open(os.path.join(REF, rel), "rb") as b:
         assert a.read() == b.read()
 
-
-def test_bamlite_copy_keeps_the_codec_lines():
-    """Every top-level line of the port's bamlite that is not an import
-    equals the reference's, in order (the reference's partitioner, which
-    needs parallel/, is the only part left out)."""
-    port = _text(os.path.join(PORT, "io/bamlite.py"))
-    ref = _text(os.path.join(REF, "io/bamlite.py"))
-    body = port[port.index("BGZF_EOF = bytes.fromhex("):]
-    start = ref.index("BGZF_EOF = bytes.fromhex(")
-    assert ref[start : start + len(body)] == body
-    assert "def select_reads_by_contig(" in ref[start + len(body):][2]
