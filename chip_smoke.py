@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch + CUDA port (falcon_unzip_tpu_torch).
 
-    python3 chip_smoke.py [--genome-bp N]
+    python3 chip_smoke.py [--genome-bp N] [--falcon-sense-bp N]
 
 Needs one NVIDIA GPU, nvcc and the repository beside this script; imports
 nothing of JAX.  Phases, one line each or more, any failure exits
@@ -16,8 +16,10 @@ non-zero:
    _summarize_moves): P=256; W 128/256/512; global, qglocal and tglocal;
    query buckets 1024/2048/4096 with their target buckets; then a batch of
    short pairs in a long bucket (n + m under half of Dmax: the early stop
-   and the MOVE_NONE tail) and a batch of pairs that cannot align (dist
-   INF); all bit-exact.  Pair-HMM forward: P=256, 512 bp
+   and the MOVE_NONE tail), a batch of pairs that cannot align (dist
+   INF), and FalconSense's launches (W=128 tglocal, P=64, 7-13 kb reads
+   at 8% in the query buckets 8192 and 16384, rows staged in shared
+   memory), each time beside its bound; all bit-exact.  Pair-HMM forward: P=256, 512 bp
    windows (Dmax 1025), W 64/128/256, each time beside its bound and SFU
    floor; then the edge batches of
    falcon_unzip_tpu_torch/utils/hmm_batches.py (corners out of the band,
@@ -54,11 +56,21 @@ non-zero:
    launch, and at the largest the kernel held against its plain version
    (within 1e-3 relative, out-of-band pairs exactly NEG) and timed: the
    kernels line's pair-HMM entry;
+4c. the command line: the nine subcommands phase, ovlp-filter, track,
+   dedup, graph, gen-gfa, readmap, select-reads (over a BAM of the tracked
+   raw reads) and bam2m4 on the golden fixture with --device cuda, each
+   one's seconds and launches; the five that align again with --device
+   cpu, their output files byte-identical;
 5. the main path at size: 3-unzip then 4-polish on cuda over a diploid
    genome of --genome-bp (default 1 Mb) with the n50 contig profile, 25x
    preads and 29x raw reads at 3% error (the recipe of
    scripts/e2e_bench.py); per-stage seconds, kernel launches, device ms,
    cell rate, peak device memory and the cns statistics;
+5c. the traced unzip: run_unzip again on phase 5's inputs with
+   cfg.profile_dir set; its 3-unzip/ byte-identical to phase 5's, the
+   trace's wavefront and traceback kernels as many as the launch counts,
+   and the device's busy share (the union of the trace's kernel and
+   memcpy intervals over its span) with the kernel and memcpy ms;
 5b. the per-base-quality hotspot polish of
    tests/test_qv_aware.py::test_polish_per_base_profile_qv on cuda (15 kb,
    20x reads of 2000 bp at 5% error, arrow_rounds 3), flat and with
@@ -70,6 +82,12 @@ non-zero:
    limit);
 7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
    line printed as it is;
+9. FalconSense (BASELINE config 1) at E. coli K-12 MG1655's length
+   (--falcon-sense-bp, default 4,641,652): a random contig, its template
+   at 2%, 20x reads of 10 kb mean at 8% (half reverse-complemented) on
+   cuda; the wall split into seed, dispatch / collect and vote / emit,
+   launches, device ms, peak device memory and the identity to the truth
+   (floor 99.9%); then a 100 kb cut, card and CPU consensus byte-equal;
 8. the kernels line (each kernel's launches on its path, its time at the
    main path's shape beside its plain version's and its bound) and the
    result line.
@@ -159,6 +177,39 @@ def _short_pairs(rng, P, bq, mode):
     return qs + [q[:400] for q in q2], ts + t2
 
 
+def _mutate(np, rng, seq, rate):
+    """utils.simulate.mutate_read's error model in numpy: each base is
+    mismatched, followed by a random inserted base, or deleted, each with
+    probability rate / 3."""
+    r = rng.random(len(seq))
+    sub = r < rate / 3
+    ins = (r >= rate / 3) & (r < 2 * rate / 3)
+    dele = (r >= 2 * rate / 3) & (r < rate)
+    out = seq.astype(np.int8)
+    out[sub] = (out[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    reps = 1 - dele.astype(np.int64) + ins
+    res = np.repeat(out, reps)
+    # an insertion's random base takes the second of its base's two slots
+    res[np.cumsum(reps)[ins] - 1] = rng.integers(0, 4, int(ins.sum()))
+    return res
+
+
+def _fs_pairs(rng, P, bq, mode):
+    """P reads of FalconSense's query bucket bq (7-13 kb, 8% error) against
+    their template windows (the source at 2%, padded by 48 bases each
+    side, as FalconSense cuts them)."""
+    import numpy as np
+    from falcon_unzip_tpu_torch.utils.simulate import random_genome
+    lo, hi = max(7000, bq // 2 + 1), min(13000, bq)
+    qs, ts = [], []
+    for _ in range(P):
+        L = int(rng.integers(lo, hi + 1))
+        src = random_genome(L + 96, int(rng.integers(1 << 30)))
+        qs.append(_mutate(np, rng, src[48 : 48 + L], 0.08)[:bq])
+        ts.append(_mutate(np, rng, src, 0.02))
+    return qs, ts
+
+
 def _unalignable_pairs(rng, P, bq, mode):
     """Queries near the bucket's length against unrelated targets of a
     few hundred bases: row n never enters the band, so the local modes
@@ -178,18 +229,21 @@ def phase_parity_align(torch, np) -> dict:
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
-    P = 256
     shapes = {}
-    cases = [(W, mode, bq, _pairs, "")
+    cases = [(W, mode, bq, _pairs, "", 256)
              for W in (128, 256, 512)
              for mode in ("global", "qglocal", "tglocal")
              for bq in (1024, 2048, 4096)]
     # appended, so that the seeded pairs of the 27 shapes stay what they were
-    cases += [(256, mode, 2048, _short_pairs, " short pairs")
+    cases += [(256, mode, 2048, _short_pairs, " short pairs", 256)
               for mode in ("global", "tglocal")]
-    cases += [(256, mode, 2048, _unalignable_pairs, " unalignable pairs")
+    cases += [(256, mode, 2048, _unalignable_pairs, " unalignable pairs", 256)
               for mode in ("qglocal", "tglocal")]
-    for W, mode, bq, make, tag in cases:
+    # FalconSense's launches (phase 9): W = 128 tglocal, 64 pairs, reads of
+    # 7-13 kb in the query buckets 8192 and 16384
+    cases += [(128, "tglocal", bq, _fs_pairs, " FalconSense", 64)
+              for bq in (8192, 16384)]
+    for W, mode, bq, make, tag, P in cases:
         qs, ts = make(rng, P, bq, mode)
         bt = _t_bucket(max(len(x) for x in ts), bq)
         q, n = _padded(np, qs, bq)
@@ -257,7 +311,7 @@ def phase_parity_align(torch, np) -> dict:
             *args, **kw), 3)
         tb_ms = time_ms(lambda: ba.traceback_batch(
             k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
-        if tag:
+        if tag and tag != " FalconSense":
             print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} "
                   f"Dmax={Dmax}{tag}: finite={finite}/{P}, "
                   f"{n_moves} moves exact | wavefront {wf_ms:.3f} "
@@ -265,7 +319,7 @@ def phase_parity_align(torch, np) -> dict:
                   f"{epi_ms['packed']:.3f} ms, summary "
                   f"{epi_ms['summary']:.3f} ms", flush=True)
             continue
-        shapes[(W, mode, bq)] = dict(
+        res = shapes[(W, mode, bq) + ((P,) if tag else ())] = dict(
             wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
             tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err,
             wf_work=bench.wavefront_work(
@@ -273,12 +327,14 @@ def phase_parity_align(torch, np) -> dict:
                 LTG=trg.shape[1]),
             tb_work=bench.traceback_work(n_moves, P=P,
                                          max_steps=steps))
-        print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}"
-              f" finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
-              f" (plain {plain_ms:.1f} ms) | traceback {tb_ms:.3f} ms"
-              f" (plain {plain_tb_ms:.1f} ms), packed "
-              f"{epi_ms['packed']:.3f} ms, summary "
-              f"{epi_ms['summary']:.3f} ms", flush=True)
+        bounds = [bench.bound_ms(w["ops"], w["bytes"], w["peak"])[0]
+                  for w in (res["wf_work"], res["tb_work"])]
+        print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}{tag}"
+              f" P={P} finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
+              f" (plain {plain_ms:.1f} ms, bound {bounds[0]:.4f} ms) | "
+              f"traceback {tb_ms:.3f} ms (plain {plain_tb_ms:.1f} ms, bound "
+              f"{bounds[1]:.5f} ms), packed {epi_ms['packed']:.3f} ms, "
+              f"summary {epi_ms['summary']:.3f} ms", flush=True)
     return shapes
 
 
@@ -825,6 +881,109 @@ def phase_reforward(torch, np, d) -> dict:
             "work": work}
 
 
+def _dir_bytes(root) -> dict:
+    """{relative path: bytes} of every file under root."""
+    got = {}
+    for base, _, names in os.walk(root):
+        for nm in names:
+            with open(os.path.join(base, nm), "rb") as fh:
+                got[os.path.relpath(os.path.join(base, nm), root)] = fh.read()
+    return got
+
+
+def _write_track_bam(np, r2c_path, reads_path, ref_path, bam_path):
+    """A BAM of the reads the track map places: each read at its contig
+    and start, one M op of its length, flag 16 on the reverse strand."""
+    from falcon_unzip_tpu_torch.io import bamlite as bl
+    from falcon_unzip_tpu_torch.io.fasta import read_fasta
+    from falcon_unzip_tpu_torch.io.serialize import deserialize
+    reads = read_fasta(reads_path)
+    refs = read_fasta(ref_path)
+    recs = []
+    for k, (ctg, t0, _t1, strand) in sorted(
+            (int(k), v) for k, v in deserialize(r2c_path).items()):
+        seq = reads.row(k)
+        recs.append(bl.BamRecord(
+            name=reads.names[k], flag=16 if strand else 0, ref_id=int(ctg),
+            pos=int(t0), mapq=60, cigar=[(len(seq), 0)], seq=seq,
+            qual=np.full(len(seq), 30, np.uint8)))
+    bl.write_bam(bam_path, bl.BamFile(
+        text="@HD\tVN:1.6\n",
+        refs=[(refs.names[i], int(refs.lengths[i])) for i in range(len(refs))],
+        records=recs))
+    return len(recs)
+
+
+def phase_cli(np, d) -> dict:
+    """The nine subcommands of the port's command line on the golden
+    fixture on the card, each with the counts set to 0 just before it and
+    read just after; the five that align run again with --device cpu (the
+    plain versions) and their output files must be byte-identical."""
+    from falcon_unzip_tpu_torch.cli import main as cli_main
+    from falcon_unzip_tpu_torch.ops import _kernels
+    u = f"{d}/out/3-unzip"
+    c = f"{d}/cli"
+    bam = f"{c}/track.bam"
+    argv = {
+        "phase": ["--preads", f"{d}/preads.fa", "--draft", f"{d}/draft.fa",
+                  "--out", "{o}/phased_reads"],
+        "ovlp-filter": ["--preads", f"{d}/preads.fa", "--phased-reads",
+                        f"{u}/all_phased_reads", "--out",
+                        "{o}/filtered.json"],
+        "track": ["--reads", f"{d}/raw.fa", "--contigs", f"{u}/all_p_ctg.fa",
+                  "--out", "{o}/r2c.msgpack"],
+        "dedup": ["--p-ctg", f"{u}/all_p_ctg.fa", "--h-ctg",
+                  f"{u}/all_h_ctg.fa", "--out", "{o}/h.dedup.fa"],
+        "graph": ["--preads", f"{d}/preads.fa", "--phased-reads",
+                  f"{u}/all_phased_reads", "--out-dir", "{o}/graph"],
+        "gen-gfa": ["--unzip-dir", u, "--out", "{o}/asm.gfa"],
+        "readmap": [f"{c}/card/phase/phased_reads", f"{u}/all_phased_reads",
+                    "--out", "{o}/rid_to_phase.all"],
+        "select-reads": ["--bam", bam, "--map",
+                         f"{c}/card/track/r2c.msgpack", "--reads",
+                         f"{d}/raw.fa", "--out-pattern", "{o}/ctg_{{}}.bam"],
+        "bam2m4": ["--bam", bam, "--out", "{o}/aln.m4"],
+    }
+    aligns = ("phase", "ovlp-filter", "track", "dedup", "graph")
+    align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
+    rows = {}
+    for cmd, args in argv.items():
+        if cmd == "select-reads":
+            n_rec = _write_track_bam(np, f"{c}/card/track/r2c.msgpack",
+                                     f"{d}/raw.fa", f"{u}/all_p_ctg.fa", bam)
+        outs = {}
+        runs = (("card", "cuda"), ("host", "cpu"))
+        for tag, dev in runs if cmd in aligns else runs[:1]:
+            o = f"{c}/{tag}/{cmd}"
+            os.makedirs(o)
+            extra = ["--device", dev] if cmd in aligns else []
+            _kernels.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                code = cli_main([cmd] + [a.format(o=o) for a in args]
+                                + extra)
+            wall = time.perf_counter() - t0
+            if code != 0:
+                _fail(f"cli {cmd} --device {dev} exited {code}")
+            outs[tag] = _dir_bytes(o)
+            if tag == "card":
+                rows[cmd] = {"s": round(wall, 2), **_launches(align)}
+            else:
+                rows[cmd]["cpu_s"] = round(wall, 2)
+        if not any(len(v) for v in outs["card"].values()):
+            _fail(f"cli {cmd}: no output")
+        if cmd in aligns:
+            if outs["card"] != outs["host"]:
+                _fail(f"cli {cmd}: card and CPU outputs differ")
+            if min(rows[cmd][k.name] for k in align) <= 0:
+                _fail(f"cli {cmd} did not align on the card: {rows[cmd]}")
+    print(f"[4c cli] nine subcommands on the golden fixture, --device cuda "
+          f"(seconds, launches; cpu_s: the same with --device cpu, outputs "
+          f"byte-identical): {rows} | select-reads and bam2m4 over a BAM of "
+          f"{n_rec} tracked raw reads", flush=True)
+    return rows
+
+
 def _n50_lengths(genome_bp):
     """scripts/e2e_bench.py::contig_lengths, profile n50."""
     fr = [0.5, 0.2, 0.1, 0.065, 0.065, 0.07]
@@ -943,7 +1102,91 @@ def phase_main(torch, tmp, genome_bp) -> dict:
     if min(q_launch.values()) <= 0:
         _fail(f"main quiver did not launch every kernel: {q_launch}")
     return {"launches": {**u_launch, "arrow_splice":
-                         q_launch["arrow_splice"]}}
+                         q_launch["arrow_splice"]}, "dir": d}
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(spans):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def _unzip_files(root) -> dict:
+    """_dir_bytes of 3-unzip/ with each stage marker's wall time and input
+    fingerprint dropped (they differ between runs by design)."""
+    got = _dir_bytes(root)
+    for rel, data in got.items():
+        if rel.endswith("stage.done.json"):
+            meta = json.loads(data)
+            meta.pop("wall_s")
+            meta.pop("fingerprint")
+            got[rel] = json.dumps(meta, sort_keys=True).encode()
+    return got
+
+
+def phase_traced(torch, d) -> dict:
+    """run_unzip again on phase 5's inputs into a fresh out_dir with
+    cfg.profile_dir set: its 3-unzip/ must equal phase 5's, and the trace
+    must hold as many wavefront and traceback kernels as the launch
+    counts.  The device's busy share: the union of the kernel and memcpy
+    intervals of the trace over the trace's span."""
+    from falcon_unzip_tpu_torch.config import load_config
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
+    cfg = load_config(f"{d}/run.json")
+    cfg.out_dir = f"{d}/traced"
+    cfg.profile_dir = f"{d}/prof"
+    align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    run_unzip(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(align)
+    if _unzip_files(f"{d}/traced/3-unzip") != _unzip_files(
+            f"{d}/out/3-unzip"):
+        _fail("the traced unzip's 3-unzip/ differs from phase 5's")
+    traces = [f for f in os.listdir(cfg.profile_dir)
+              if f.startswith("unzip.") and f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        _fail(f"traced unzip wrote {traces}, not one unzip trace")
+    path = os.path.join(cfg.profile_dir, traces[0])
+    size_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    parse_s = time.perf_counter() - t0
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    copy = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    ours = {k.name: sum(1 for e in kern if f"{k.name}_kernel" in e["name"])
+            for k in align}
+    busy = _union_us([(e["ts"], e["ts"] + e["dur"]) for e in kern + copy])
+    kern_ms = sum(e["dur"] for e in kern) / 1e3
+    ours_ms = sum(e["dur"] for e in kern
+                  if any(f"{k}_kernel" in e["name"] for k in ours)) / 1e3
+    copy_ms = sum(e["dur"] for e in copy) / 1e3
+    print(f"[5c traced] run_unzip with profile_dir: wall {wall:.1f} s "
+          f"(trace written in it), 3-unzip/ equal to phase 5's | trace "
+          f"{size_mb:.1f} MB, parsed in {parse_s:.1f} s, span "
+          f"{span / 1e6:.3f} s | kernels {len(kern)} ({kern_ms:.1f} ms; "
+          f"wavefront + traceback {ours} = launch counts {launches}, "
+          f"{ours_ms:.1f} ms), memcpy {len(copy)} ({copy_ms:.1f} ms) | "
+          f"device busy share {busy / span:.5f} ({busy / 1e3:.1f} ms of "
+          f"kernel and memcpy union over the trace's span)", flush=True)
+    if ours != launches or min(launches.values()) <= 0:
+        _fail(f"the trace holds {ours} wavefront and traceback kernels, the "
+              f"launch counts are {launches}")
+    return {"busy_share": busy / span, "span_s": span / 1e6, "wall_s": wall}
 
 
 def phase_hotspot(torch, np) -> dict:
@@ -1058,6 +1301,128 @@ def phase_bench() -> dict:
     return res
 
 
+ECOLI_BP = 4_641_652    # E. coli K-12 MG1655, the length of its genome
+
+
+def _fs_inputs(np, genome_bp, seed):
+    """BASELINE config 1's inputs at genome_bp: a random contig (the
+    truth), the template (the truth at 2%), 20x reads of 10 kb mean
+    (0.7-1.3x, as simulate_reads draws lengths) at 8% error, every second
+    one reverse-complemented.  Returns (truth, template, reads, spans)."""
+    from falcon_unzip_tpu_torch.seq import revcomp
+    from falcon_unzip_tpu_torch.utils.simulate import random_genome
+    rng = np.random.default_rng(seed)
+    truth = random_genome(genome_bp, seed)
+    template = _mutate(np, rng, truth, 0.02)
+    reads, spans = [], []
+    for k in range(int(20 * genome_bp / 10_000)):
+        L = int(min(10_000 * (0.7 + 0.6 * rng.random()), genome_bp))
+        s = int(rng.integers(0, genome_bp - L + 1))
+        r = _mutate(np, rng, truth[s : s + L], 0.08)
+        reads.append(revcomp(r) if k % 2 else r)
+        spans.append((s, s + L))
+    return truth, template, reads, spans
+
+
+@contextlib.contextmanager
+def _clock(module, names, spent):
+    """Wrap module.<name> for each name with a host clock that adds its
+    seconds to spent[name]; restore on exit."""
+    saved = {nm: vars(module)[nm] for nm in names}
+
+    def timed(nm, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[nm] = spent.get(nm, 0.0) + time.perf_counter() - t0
+        # a class's static method stays static
+        return staticmethod(call) if isinstance(module, type) else call
+    try:
+        for nm, fn in saved.items():
+            setattr(module, nm, timed(nm, fn))
+        yield spent
+    finally:
+        for nm, fn in saved.items():
+            setattr(module, nm, fn)
+
+
+def _identity(np, cns, truth) -> tuple:
+    """Identity of the consensus to the truth: its 10 kb pieces aligned
+    to the truth on the card (models.aligner, one placement a piece);
+    1 - edit distance / aligned truth span, summed over the pieces, and
+    the share of the truth the pieces span."""
+    from falcon_unzip_tpu_torch.models.aligner import ReadToContigAligner
+    from falcon_unzip_tpu_torch.seq import SeqBatch
+    pieces = [cns[i : i + 10_000] for i in range(0, len(cns), 10_000)]
+    aln = ReadToContigAligner([truth], device="cuda").align_batch(
+        SeqBatch.from_strs(pieces))
+    span = int((aln.t_end - aln.t_start).sum())
+    return 1.0 - int(aln.dist.sum()) / max(span, 1), span / len(truth)
+
+
+def phase_falcon_sense(torch, np, genome_bp) -> dict:
+    """FalconSense (BASELINE config 1) on the card at E. coli length, the
+    counts set to 0 just before it and read just after; then a 100 kb
+    cut of the same template with the reads inside it, the card's
+    consensus against the CPU's (the plain versions) byte for byte."""
+    from falcon_unzip_tpu_torch.models import consensus as fs
+    from falcon_unzip_tpu_torch.ops import _kernels
+    t0 = time.perf_counter()
+    truth, template, reads, spans = _fs_inputs(np, genome_bp, 9)
+    sim_s = time.perf_counter() - t0
+    align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
+    spent: dict = {}
+    for k in align:
+        k.timed = True
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    with _clock(fs, ("seed_batch", "vote_matrix", "consensus_from_votes"),
+                spent), _clock(fs.KmerIndex, ("build",), spent):
+        cns = fs.FalconSense(fs.ConsensusConfig(), device="cuda")(
+            template, reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(align)
+    dev_ms = {k.name: k.elapsed_ms() for k in align}
+    peak = torch.cuda.max_memory_allocated()
+    for k in align:
+        k.timed = False
+    seed_s = spent["build"] + spent["seed_batch"]
+    vote_s = spent["vote_matrix"] + spent["consensus_from_votes"]
+    ident, covered = _identity(np, cns, truth)
+    print(f"[9 falcon_sense] template {len(template)} bp (truth "
+          f"{genome_bp} bp at 2%), {len(reads)} reads 20x 10 kb mean at 8%, "
+          f"half reverse-complemented | sim {sim_s:.1f} s | wall {wall:.1f} "
+          f"s: seed {seed_s:.1f} s, dispatch / collect "
+          f"{wall - seed_s - vote_s:.1f} s, vote / emit {vote_s:.1f} s | "
+          f"launches {launches}, device ms {dev_ms} | peak device memory "
+          f"{peak / 2**30:.3f} GiB | consensus {len(cns)} bp, identity to "
+          f"the truth {ident:.6f} over {covered:.4f} of it (floor 0.999)",
+          flush=True)
+    if min(launches.values()) <= 0:
+        _fail(f"FalconSense did not launch both DP kernels: {launches}")
+    if ident < 0.999 or covered < 0.99:
+        _fail(f"FalconSense identity {ident} over {covered} of the truth")
+    cut = 100_000
+    sub = [r for r, (a, b) in zip(reads, spans) if b <= cut]
+    t0 = time.perf_counter()
+    card = fs.FalconSense(device="cuda")(template[:cut], sub)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = fs.FalconSense(device="cpu")(template[:cut], sub)
+    cpu_s = time.perf_counter() - t0
+    same = card.dtype == cpu.dtype and card.tobytes() == cpu.tobytes()
+    print(f"[9 falcon_sense] 100 kb cut, {len(sub)} reads: card {card_s:.1f}"
+          f" s, CPU {cpu_s:.1f} s, consensus of {len(card)} bp "
+          f"{'byte-equal' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        _fail("FalconSense on the 100 kb cut: card and CPU consensus differ")
+    return {"launches": launches, "ms": dev_ms, "identity": ident}
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
     """One kernel of the kernels line; its bound from this run's work."""
     from falcon_unzip_tpu_torch import bench
@@ -1073,6 +1438,7 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=1_000_000)
+    ap.add_argument("--falcon-sense-bp", type=int, default=ECOLI_BP)
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "falcon_unzip_tpu_torch")):
@@ -1092,12 +1458,15 @@ def main(argv=None) -> int:
     try:
         golden_dir = phase_golden(tmp)
         reforward = phase_reforward(torch, np, golden_dir)
+        phase_cli(np, golden_dir)
         main_run = phase_main(torch, tmp, args.genome_bp)
+        phase_traced(torch, main_run["dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_hotspot(torch, np)
     ablate_run = phase_ablate_path()
     phase_bench()
+    phase_falcon_sense(torch, np, args.falcon_sense_bp)
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
     at = shapes[(256, "tglocal", 2048)]

@@ -256,6 +256,89 @@ def test_golden_pipeline_on_card(cuda, tmp_path):
     assert _kernels.TRACEBACK.launches > 0
 
 
+def _template_reads(L, n, seed, rc=False):
+    """A template (the truth at 2%) and n reads of 10 kb mean (0.7-1.3x,
+    cut to L) at 8% error; every second one reverse-complemented with
+    rc.  Returns (truth, template, reads, the reads' truth spans)."""
+    from falcon_unzip_tpu_torch.seq import revcomp
+    rng = np.random.default_rng(seed)
+    truth = random_genome(L, seed)
+    template = mutate_read(truth, 0.02, rng)
+    reads, spans = [], []
+    for k in range(n):
+        ln = min(int(10000 * (0.7 + 0.6 * rng.random())), L)
+        s = int(rng.integers(0, L - ln + 1))
+        r = mutate_read(truth[s : s + ln], 0.08, rng)
+        reads.append(revcomp(r) if rc and k % 2 else r)
+        spans.append((s, s + ln))
+    return truth, template, reads, spans
+
+
+def test_falcon_sense_shape_matches_plain_on_card(cuda):
+    """FalconSense's largest launch: W = 128 tglocal, the query bucket
+    16384 (reads of 8193 bases and more), P = 64, each read against its
+    template window padded by 48 bases, the schedule cut as
+    BandedAligner.dispatch cuts it.  The wavefront (rows staged in shared
+    memory), the moves and the fused packed epilogue equal their plain
+    versions."""
+    from falcon_unzip_tpu_torch.models.aligner import _t_bucket
+    W, P, bq = 128, 64, 16384
+    truth, template, reads, spans = _template_reads(60000, 160, seed=31)
+    pick = [k for k, r in enumerate(reads) if len(r) > bq // 2][:P]
+    assert len(pick) == P
+    qs = [reads[k] for k in pick]
+    ts = [template[max(0, spans[k][0] - 48) : spans[k][1] + 48]
+          for k in pick]
+    bt = _t_bucket(max(len(x) for x in ts), bq)
+    q = np.full((P, bq), 4, np.int8)
+    t = np.full((P, bt), 4, np.int8)
+    for k in range(P):
+        q[k, : len(qs[k])] = qs[k]
+        t[k, : len(ts[k])] = ts[k]
+    n = np.array([len(x) for x in qs], np.int32)
+    m = np.array([len(x) for x in ts], np.int32)
+    Dmax, lo = ba.build_schedule(bq, bt, W)
+    Dmax = min(Dmax, -(-(int((n + m).max()) + 1) // 1024) * 1024)
+    lo = lo[:Dmax]
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    assert qg.shape[1] + trg.shape[1] < 96 * 1024       # staged rows
+    args = [torch.from_numpy(x).to(cuda) for x in (qg, trg, n, m)]
+    kw = dict(W=W, Lt=bt, G=G, mode="tglocal")
+    _kernels.reset_counts()
+    k = ba.banded_align_batch(*args, lo, **kw)
+    p = ba.banded_align_batch_plain(*args, lo, **kw)
+    for key in ("dist", "end_i", "end_j", "bp"):
+        assert torch.equal(k[key], p[key]), key
+    assert int((p["dist"] < 1 << 20).sum()) == P
+    ends = (p["dist"], p["end_i"], p["end_j"])
+    tk = ba.traceback_batch(k["bp"], lo, *ends[1:], max_steps=Dmax - 1)
+    tp = ba.traceback_batch_plain(p["bp"], lo, *ends[1:],
+                                  max_steps=Dmax - 1)
+    assert torch.equal(tk, tp)
+    assert int((tp != ba.MOVE_NONE).sum(1).min()) > bq // 2
+    assert torch.equal(
+        ba.traceback_packed(k["bp"], lo, *ends, max_steps=Dmax - 1),
+        ba.traceback_packed_plain(p["bp"], lo, *ends, max_steps=Dmax - 1))
+    torch.cuda.synchronize()
+    assert (_kernels.WAVEFRONT.launches, _kernels.TRACEBACK.launches) \
+        == (1, 2)
+
+
+def test_falcon_sense_card_equals_cpu_on_card(cuda):
+    """FalconSense on a 20 kb template, 16 reads of 10 kb mean at 8%, half
+    reverse-complemented: the card's consensus equals the CPU's (the plain
+    versions) byte for byte, through the kernels."""
+    from falcon_unzip_tpu_torch.models.consensus import FalconSense
+    _, template, reads, _ = _template_reads(20000, 16, seed=32, rc=True)
+    _kernels.reset_counts()
+    got = FalconSense(device="cuda")(template, reads)
+    launches = (_kernels.WAVEFRONT.launches, _kernels.TRACEBACK.launches)
+    want = FalconSense(device="cpu")(template, reads)
+    assert len(want) > 19000
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert min(launches) >= 2        # the 8192 and 16384 query buckets
+
+
 def _close(k, p):
     k, p = k.double().cpu(), p.double().cpu()
     assert torch.equal(k < -1e29, p < -1e29)
