@@ -18,11 +18,10 @@ logger = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
-def device_trace(out_dir: str, device, name: str = "trace"):
+def device_trace(out_dir: str, device, name: str):
     """Capture a torch.profiler trace of the enclosed block on ``device``
     into ``out_dir/<name>.<pid>.<ns>.pt.trace.json`` (a file of its own
-    for each run, so that runs sharing ``out_dir`` keep every trace).
-    Yields a dict whose "path" is set once the trace is written."""
+    for each run, so that runs sharing ``out_dir`` keep every trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -34,18 +33,16 @@ def device_trace(out_dir: str, device, name: str = "trace"):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(
         out_dir, f"{name}.{os.getpid()}.{time.time_ns()}.pt.trace.json")
-    out = {"path": None}
     prof = profile(activities=activities, record_shapes=False,
                    with_stack=False)
     prof.start()
     try:
-        yield out
+        yield
     finally:
         if ProfilerActivity.CUDA in activities:
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(path)
-        out["path"] = path
         logger.info("profiler trace written to %s", path)
 
 
