@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch + CUDA port (falcon_unzip_tpu_torch).
 
-    python3 chip_smoke.py [--genome-bp N] [--falcon-sense-bp N]
+    python3 chip_smoke.py [--genome-bp N]
 
 Needs one NVIDIA GPU, nvcc and the repository beside this script; imports
 nothing of JAX.  Phases, one line each or more, any failure exits
@@ -82,12 +82,14 @@ non-zero:
    limit);
 7. the kernel bench: python -m falcon_unzip_tpu_torch.cli bench, its JSON
    line printed as it is;
-9. FalconSense (BASELINE config 1) at E. coli K-12 MG1655's length
-   (--falcon-sense-bp, default 4,641,652): a random contig, its template
-   at 2%, 20x reads of 10 kb mean at 8% (half reverse-complemented) on
-   cuda; the wall split into seed, dispatch / collect and vote / emit,
-   launches, device ms, peak device memory and the identity to the truth
-   (floor 99.9%); then a 100 kb cut, card and CPU consensus byte-equal;
+9. FalconSense (BASELINE config 1) at E. coli K-12 MG1655's length,
+   4,641,652 bp: a random contig, its template at 2%, 20x reads of 10 kb
+   mean at 8% (half reverse-complemented) on cuda; the wall split into
+   seed, dispatch / collect and vote / emit, launches, device ms, peak
+   device memory and the identity to the truth (floor 99.9%) from a plain
+   torch edit distance of every 10 kb piece (utils/fixtures.py
+   edit_identity: neither the port's kernels nor its aligner); then a
+   100 kb cut, card and CPU consensus byte-equal;
 8. the kernels line (each kernel's launches on its path, its time at the
    main path's shape beside its plain version's and its bound) and the
    result line.
@@ -177,36 +179,19 @@ def _short_pairs(rng, P, bq, mode):
     return qs + [q[:400] for q in q2], ts + t2
 
 
-def _mutate(np, rng, seq, rate):
-    """utils.simulate.mutate_read's error model in numpy: each base is
-    mismatched, followed by a random inserted base, or deleted, each with
-    probability rate / 3."""
-    r = rng.random(len(seq))
-    sub = r < rate / 3
-    ins = (r >= rate / 3) & (r < 2 * rate / 3)
-    dele = (r >= 2 * rate / 3) & (r < rate)
-    out = seq.astype(np.int8)
-    out[sub] = (out[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-    reps = 1 - dele.astype(np.int64) + ins
-    res = np.repeat(out, reps)
-    # an insertion's random base takes the second of its base's two slots
-    res[np.cumsum(reps)[ins] - 1] = rng.integers(0, 4, int(ins.sum()))
-    return res
-
-
 def _fs_pairs(rng, P, bq, mode):
     """P reads of FalconSense's query bucket bq (7-13 kb, 8% error) against
     their template windows (the source at 2%, padded by 48 bases each
     side, as FalconSense cuts them)."""
-    import numpy as np
+    from falcon_unzip_tpu_torch.utils.fixtures import mutate
     from falcon_unzip_tpu_torch.utils.simulate import random_genome
     lo, hi = max(7000, bq // 2 + 1), min(13000, bq)
     qs, ts = [], []
     for _ in range(P):
         L = int(rng.integers(lo, hi + 1))
         src = random_genome(L + 96, int(rng.integers(1 << 30)))
-        qs.append(_mutate(np, rng, src[48 : 48 + L], 0.08)[:bq])
-        ts.append(_mutate(np, rng, src, 0.02))
+        qs.append(mutate(rng, src[48 : 48 + L], 0.08)[:bq])
+        ts.append(mutate(rng, src, 0.02))
     return qs, ts
 
 
@@ -881,16 +866,6 @@ def phase_reforward(torch, np, d) -> dict:
             "work": work}
 
 
-def _dir_bytes(root) -> dict:
-    """{relative path: bytes} of every file under root."""
-    got = {}
-    for base, _, names in os.walk(root):
-        for nm in names:
-            with open(os.path.join(base, nm), "rb") as fh:
-                got[os.path.relpath(os.path.join(base, nm), root)] = fh.read()
-    return got
-
-
 def _write_track_bam(np, r2c_path, reads_path, ref_path, bam_path):
     """A BAM of the reads the track map places: each read at its contig
     and start, one M op of its length, flag 16 on the reverse strand."""
@@ -921,6 +896,7 @@ def phase_cli(np, d) -> dict:
     plain versions) and their output files must be byte-identical."""
     from falcon_unzip_tpu_torch.cli import main as cli_main
     from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils.fixtures import dir_bytes
     u = f"{d}/out/3-unzip"
     c = f"{d}/cli"
     bam = f"{c}/track.bam"
@@ -965,7 +941,7 @@ def phase_cli(np, d) -> dict:
             wall = time.perf_counter() - t0
             if code != 0:
                 _fail(f"cli {cmd} --device {dev} exited {code}")
-            outs[tag] = _dir_bytes(o)
+            outs[tag] = dir_bytes(o)
             if tag == "card":
                 rows[cmd] = {"s": round(wall, 2), **_launches(align)}
             else:
@@ -1118,19 +1094,6 @@ def _union_us(spans) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def _unzip_files(root) -> dict:
-    """_dir_bytes of 3-unzip/ with each stage marker's wall time and input
-    fingerprint dropped (they differ between runs by design)."""
-    got = _dir_bytes(root)
-    for rel, data in got.items():
-        if rel.endswith("stage.done.json"):
-            meta = json.loads(data)
-            meta.pop("wall_s")
-            meta.pop("fingerprint")
-            got[rel] = json.dumps(meta, sort_keys=True).encode()
-    return got
-
-
 def phase_traced(torch, d) -> dict:
     """run_unzip again on phase 5's inputs into a fresh out_dir with
     cfg.profile_dir set: its 3-unzip/ must equal phase 5's, and the trace
@@ -1140,6 +1103,7 @@ def phase_traced(torch, d) -> dict:
     from falcon_unzip_tpu_torch.config import load_config
     from falcon_unzip_tpu_torch.ops import _kernels
     from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
+    from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
     cfg = load_config(f"{d}/run.json")
     cfg.out_dir = f"{d}/traced"
     cfg.profile_dir = f"{d}/prof"
@@ -1150,8 +1114,8 @@ def phase_traced(torch, d) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches(align)
-    if _unzip_files(f"{d}/traced/3-unzip") != _unzip_files(
-            f"{d}/out/3-unzip"):
+    if run_artifacts(f"{d}/traced", ("3-unzip/**/*",)) != run_artifacts(
+            f"{d}/out", ("3-unzip/**/*",)):
         _fail("the traced unzip's 3-unzip/ differs from phase 5's")
     traces = [f for f in os.listdir(cfg.profile_dir)
               if f.startswith("unzip.") and f.endswith(".pt.trace.json")]
@@ -1304,26 +1268,6 @@ def phase_bench() -> dict:
 ECOLI_BP = 4_641_652    # E. coli K-12 MG1655, the length of its genome
 
 
-def _fs_inputs(np, genome_bp, seed):
-    """BASELINE config 1's inputs at genome_bp: a random contig (the
-    truth), the template (the truth at 2%), 20x reads of 10 kb mean
-    (0.7-1.3x, as simulate_reads draws lengths) at 8% error, every second
-    one reverse-complemented.  Returns (truth, template, reads, spans)."""
-    from falcon_unzip_tpu_torch.seq import revcomp
-    from falcon_unzip_tpu_torch.utils.simulate import random_genome
-    rng = np.random.default_rng(seed)
-    truth = random_genome(genome_bp, seed)
-    template = _mutate(np, rng, truth, 0.02)
-    reads, spans = [], []
-    for k in range(int(20 * genome_bp / 10_000)):
-        L = int(min(10_000 * (0.7 + 0.6 * rng.random()), genome_bp))
-        s = int(rng.integers(0, genome_bp - L + 1))
-        r = _mutate(np, rng, truth[s : s + L], 0.08)
-        reads.append(revcomp(r) if k % 2 else r)
-        spans.append((s, s + L))
-    return truth, template, reads, spans
-
-
 @contextlib.contextmanager
 def _clock(module, names, spent):
     """Wrap module.<name> for each name with a host clock that adds its
@@ -1348,29 +1292,19 @@ def _clock(module, names, spent):
             setattr(module, nm, fn)
 
 
-def _identity(np, cns, truth) -> tuple:
-    """Identity of the consensus to the truth: its 10 kb pieces aligned
-    to the truth on the card (models.aligner, one placement a piece);
-    1 - edit distance / aligned truth span, summed over the pieces, and
-    the share of the truth the pieces span."""
-    from falcon_unzip_tpu_torch.models.aligner import ReadToContigAligner
-    from falcon_unzip_tpu_torch.seq import SeqBatch
-    pieces = [cns[i : i + 10_000] for i in range(0, len(cns), 10_000)]
-    aln = ReadToContigAligner([truth], device="cuda").align_batch(
-        SeqBatch.from_strs(pieces))
-    span = int((aln.t_end - aln.t_start).sum())
-    return 1.0 - int(aln.dist.sum()) / max(span, 1), span / len(truth)
-
-
-def phase_falcon_sense(torch, np, genome_bp) -> dict:
+def phase_falcon_sense(torch) -> dict:
     """FalconSense (BASELINE config 1) on the card at E. coli length, the
-    counts set to 0 just before it and read just after; then a 100 kb
-    cut of the same template with the reads inside it, the card's
-    consensus against the CPU's (the plain versions) byte for byte."""
+    counts set to 0 just before it and read just after, its identity to
+    the truth from fixtures.edit_identity; then a 100 kb cut of the same
+    template with the reads inside it, the card's consensus against the
+    CPU's (the plain versions) byte for byte."""
     from falcon_unzip_tpu_torch.models import consensus as fs
     from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils.fixtures import (edit_identity,
+                                                       template_reads)
     t0 = time.perf_counter()
-    truth, template, reads, spans = _fs_inputs(np, genome_bp, 9)
+    truth, template, reads, spans = template_reads(
+        ECOLI_BP, 20 * ECOLI_BP // 10_000, seed=9)
     sim_s = time.perf_counter() - t0
     align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
     spent: dict = {}
@@ -1381,8 +1315,7 @@ def phase_falcon_sense(torch, np, genome_bp) -> dict:
     t0 = time.perf_counter()
     with _clock(fs, ("seed_batch", "vote_matrix", "consensus_from_votes"),
                 spent), _clock(fs.KmerIndex, ("build",), spent):
-        cns = fs.FalconSense(fs.ConsensusConfig(), device="cuda")(
-            template, reads)
+        cns = fs.FalconSense(fs.ConsensusConfig(), "cuda")(template, reads)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches(align)
@@ -1392,27 +1325,33 @@ def phase_falcon_sense(torch, np, genome_bp) -> dict:
         k.timed = False
     seed_s = spent["build"] + spent["seed_batch"]
     vote_s = spent["vote_matrix"] + spent["consensus_from_votes"]
-    ident, covered = _identity(np, cns, truth)
+    t0 = time.perf_counter()
+    score = edit_identity(cns, truth, "cuda")
+    score_s = time.perf_counter() - t0
+    ident, covered = score["identity"], score["placed"] / len(truth)
     print(f"[9 falcon_sense] template {len(template)} bp (truth "
-          f"{genome_bp} bp at 2%), {len(reads)} reads 20x 10 kb mean at 8%, "
+          f"{ECOLI_BP} bp at 2%), {len(reads)} reads 20x 10 kb mean at 8%, "
           f"half reverse-complemented | sim {sim_s:.1f} s | wall {wall:.1f} "
           f"s: seed {seed_s:.1f} s, dispatch / collect "
           f"{wall - seed_s - vote_s:.1f} s, vote / emit {vote_s:.1f} s | "
           f"launches {launches}, device ms {dev_ms} | peak device memory "
           f"{peak / 2**30:.3f} GiB | consensus {len(cns)} bp, identity to "
-          f"the truth {ident:.6f} over {covered:.4f} of it (floor 0.999)",
-          flush=True)
+          f"the truth {ident:.6f} (floor 0.999; plain edit distance of "
+          f"{score['pieces']} pieces of 10 kb, {score['unplaced']} unplaced, "
+          f"summed distance {sum(score['dist'])}, {score_s:.1f} s), placed "
+          f"bases {covered:.4f} of the truth's length", flush=True)
     if min(launches.values()) <= 0:
         _fail(f"FalconSense did not launch both DP kernels: {launches}")
-    if ident < 0.999 or covered < 0.99:
-        _fail(f"FalconSense identity {ident} over {covered} of the truth")
+    if ident < 0.999 or score["unplaced"] or covered < 0.99:
+        _fail(f"FalconSense identity {ident}, {score['unplaced']} pieces "
+              f"unplaced, {covered} of the truth placed")
     cut = 100_000
     sub = [r for r, (a, b) in zip(reads, spans) if b <= cut]
     t0 = time.perf_counter()
-    card = fs.FalconSense(device="cuda")(template[:cut], sub)
+    card = fs.FalconSense(fs.ConsensusConfig(), "cuda")(template[:cut], sub)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = fs.FalconSense(device="cpu")(template[:cut], sub)
+    cpu = fs.FalconSense(fs.ConsensusConfig(), "cpu")(template[:cut], sub)
     cpu_s = time.perf_counter() - t0
     same = card.dtype == cpu.dtype and card.tobytes() == cpu.tobytes()
     print(f"[9 falcon_sense] 100 kb cut, {len(sub)} reads: card {card_s:.1f}"
@@ -1438,7 +1377,6 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--genome-bp", type=int, default=1_000_000)
-    ap.add_argument("--falcon-sense-bp", type=int, default=ECOLI_BP)
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "falcon_unzip_tpu_torch")):
@@ -1466,7 +1404,7 @@ def main(argv=None) -> int:
     phase_hotspot(torch, np)
     ablate_run = phase_ablate_path()
     phase_bench()
-    phase_falcon_sense(torch, np, args.falcon_sense_bp)
+    phase_falcon_sense(torch)
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.scripts import ablate_pairhmm as ab
     at = shapes[(256, "tglocal", 2048)]

@@ -37,10 +37,9 @@ class ConsensusConfig:
 class FalconSense:
     """Batched template+reads consensus caller.
 
-    device: the torch device of the DP (None: the enclosing
-    ``device.scope``)."""
+    cfg: None for the defaults; device: the torch device of the DP."""
 
-    def __init__(self, cfg: ConsensusConfig | None = None, device=None):
+    def __init__(self, cfg: ConsensusConfig | None, device):
         self.cfg = cfg or ConsensusConfig()
         self._aligner = BandedAligner(W=self.cfg.band, mode="tglocal",
                                       device=device)

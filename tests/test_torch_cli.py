@@ -21,6 +21,7 @@ from falcon_unzip_tpu_torch.io import bamlite as bl
 from falcon_unzip_tpu_torch.io.fasta import read_fasta, write_fasta
 from falcon_unzip_tpu_torch.io.serialize import serialize
 from falcon_unzip_tpu_torch.seq import decode
+from falcon_unzip_tpu_torch.utils.fixtures import dir_bytes
 from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
                                                    random_genome,
                                                    simulate_reads)
@@ -96,15 +97,6 @@ def _argv(d, bam, out):
 ALIGNS = {"phase", "ovlp-filter", "track", "dedup", "graph"}
 
 
-def _outputs(out):
-    got = {}
-    for base, _, names in os.walk(out):
-        for nm in names:
-            with open(os.path.join(base, nm), "rb") as fh:
-                got[os.path.relpath(os.path.join(base, nm), out)] = fh.read()
-    return got
-
-
 @pytest.fixture(scope="module")
 def both(inputs):
     """{subcommand: (reference outputs, port outputs)}."""
@@ -118,7 +110,7 @@ def both(inputs):
             os.makedirs(out)
             argv = _argv(d, bam, out)[cmd]
             assert fn([cmd] + argv + (extra if cmd in ALIGNS else [])) == 0
-            outs.append(_outputs(out))
+            outs.append(dir_bytes(out))
         res[cmd] = outs
     return res
 

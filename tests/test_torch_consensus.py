@@ -64,7 +64,7 @@ def test_consensus_byte_equal_to_jax(seed, rc):
         r = mutate_read(truth[s : s + L], 0.08, rng)
         reads.append(revcomp(r) if rc and k % 2 else r)
     want = RefFalconSense()(template, reads)
-    got = FalconSense(device="cpu")(template, reads)
+    got = FalconSense(ConsensusConfig(), device="cpu")(template, reads)
     assert len(got) > 2000
     assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 

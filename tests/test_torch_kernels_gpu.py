@@ -21,6 +21,7 @@ from falcon_unzip_tpu_torch.ops import _kernels
 from falcon_unzip_tpu_torch.ops import banded_align as ba
 from falcon_unzip_tpu_torch.seq import SeqBatch
 from falcon_unzip_tpu_torch.utils import arrow_batches as ab
+from falcon_unzip_tpu_torch.utils.fixtures import template_reads
 from falcon_unzip_tpu_torch.utils import hmm_batches as hb
 from falcon_unzip_tpu_torch.utils.simulate import mutate_read, random_genome
 
@@ -256,24 +257,6 @@ def test_golden_pipeline_on_card(cuda, tmp_path):
     assert _kernels.TRACEBACK.launches > 0
 
 
-def _template_reads(L, n, seed, rc=False):
-    """A template (the truth at 2%) and n reads of 10 kb mean (0.7-1.3x,
-    cut to L) at 8% error; every second one reverse-complemented with
-    rc.  Returns (truth, template, reads, the reads' truth spans)."""
-    from falcon_unzip_tpu_torch.seq import revcomp
-    rng = np.random.default_rng(seed)
-    truth = random_genome(L, seed)
-    template = mutate_read(truth, 0.02, rng)
-    reads, spans = [], []
-    for k in range(n):
-        ln = min(int(10000 * (0.7 + 0.6 * rng.random())), L)
-        s = int(rng.integers(0, L - ln + 1))
-        r = mutate_read(truth[s : s + ln], 0.08, rng)
-        reads.append(revcomp(r) if rc and k % 2 else r)
-        spans.append((s, s + ln))
-    return truth, template, reads, spans
-
-
 def test_falcon_sense_shape_matches_plain_on_card(cuda):
     """FalconSense's largest launch: W = 128 tglocal, the query bucket
     16384 (reads of 8193 bases and more), P = 64, each read against its
@@ -283,7 +266,8 @@ def test_falcon_sense_shape_matches_plain_on_card(cuda):
     versions."""
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
     W, P, bq = 128, 64, 16384
-    truth, template, reads, spans = _template_reads(60000, 160, seed=31)
+    _, template, reads, spans = template_reads(60000, 160, seed=31,
+                                               rc=False)
     pick = [k for k, r in enumerate(reads) if len(r) > bq // 2][:P]
     assert len(pick) == P
     qs = [reads[k] for k in pick]
@@ -328,12 +312,13 @@ def test_falcon_sense_card_equals_cpu_on_card(cuda):
     """FalconSense on a 20 kb template, 16 reads of 10 kb mean at 8%, half
     reverse-complemented: the card's consensus equals the CPU's (the plain
     versions) byte for byte, through the kernels."""
-    from falcon_unzip_tpu_torch.models.consensus import FalconSense
-    _, template, reads, _ = _template_reads(20000, 16, seed=32, rc=True)
+    from falcon_unzip_tpu_torch.models.consensus import (ConsensusConfig,
+                                                         FalconSense)
+    _, template, reads, _ = template_reads(20000, 16, seed=32)
     _kernels.reset_counts()
-    got = FalconSense(device="cuda")(template, reads)
+    got = FalconSense(ConsensusConfig(), "cuda")(template, reads)
     launches = (_kernels.WAVEFRONT.launches, _kernels.TRACEBACK.launches)
-    want = FalconSense(device="cpu")(template, reads)
+    want = FalconSense(ConsensusConfig(), "cpu")(template, reads)
     assert len(want) > 19000
     assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
     assert min(launches) >= 2        # the 8192 and 16384 query buckets

@@ -7,7 +7,6 @@ on the same inputs.
 """
 import glob
 import json
-import os
 
 import pytest
 import torch
@@ -17,6 +16,7 @@ from falcon_unzip_tpu_torch.io.fasta import write_fasta
 from falcon_unzip_tpu_torch.pipeline.quiver import run_quiver
 from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
 from falcon_unzip_tpu_torch.seq import decode
+from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
 from falcon_unzip_tpu_torch.utils.profiling import StageTimer, device_trace
 from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
                                                    simulate_reads)
@@ -30,25 +30,6 @@ def _cfg(d, out, profile_dir=""):
     polishes with the preads)."""
     return PipelineConfig(preads=f"{d}/preads.fa", draft=f"{d}/draft.fa",
                           out_dir=f"{d}/{out}", profile_dir=profile_dir)
-
-
-def _artifacts(out_dir):
-    """{relative path: comparable bytes} of 3-unzip/ and 4-polish/cns_*
-    (stage markers without their wall time and input fingerprint)."""
-    got = {}
-    for path in sorted(glob.glob(f"{out_dir}/3-unzip/**/*", recursive=True)
-                       + glob.glob(f"{out_dir}/4-polish/cns_*")):
-        if os.path.isdir(path):
-            continue
-        with open(path, "rb") as fh:
-            data = fh.read()
-        if path.endswith("stage.done.json"):
-            meta = json.loads(data)
-            meta.pop("wall_s")
-            meta.pop("fingerprint")
-            data = json.dumps(meta, sort_keys=True).encode()
-        got[os.path.relpath(path, out_dir)] = data
-    return got
 
 
 @pytest.fixture(scope="module")
@@ -82,8 +63,8 @@ def test_one_trace_a_run(runs):
 
 def test_traced_artifacts_byte_identical(runs):
     d, _ = runs
-    plain = _artifacts(f"{d}/plain")
-    traced = _artifacts(f"{d}/traced")
+    plain = run_artifacts(f"{d}/plain")
+    traced = run_artifacts(f"{d}/traced")
     assert {"3-unzip/all_p_ctg.fa", "3-unzip/all_h_ctg.fa",
             "4-polish/cns_p_ctg.fasta",
             "4-polish/cns_h_ctg.fasta"} <= set(plain)
