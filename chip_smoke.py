@@ -71,6 +71,24 @@ non-zero:
    trace's wavefront and traceback kernels as many as the launch counts,
    and the device's busy share (the union of the trace's kernel and
    memcpy intervals over its span) with the kernel and memcpy ms;
+10. parallel/ on the card, after 5c: (a) a mesh of 4 logical shards (2 x
+   2) on cuda:0 with the sharding debug checks on: ShardedPhaseOps'
+   pileup and association at a 1 Mb contig's tag count (25 M tags;
+   11,360 reads x 7,200 sites) bit-exact to the single-device ops,
+   ShardedWindowVotes at 500 kb (14.5 M tags) equal to vote_matrix in
+   every polish window, regroup_partition of 16,109 reads into 23
+   contigs equal to a host group-by, a forced regroup overflow and the
+   halo exchange exact, ShardedArrowSplicer (P=512, Lq=LJ=640, C=4) and
+   ShardedPairHMMScorer (phase 4b's P=7095, Lq=Lt=512, W=128) within
+   1e-3 * max(1, |single|) of the single-device op, out-of-band pairs
+   exactly NEG; each line with the launches of the sharded call and the
+   warp / cells-a-lane builds unsharded and a shard; (b) run_unzip then
+   run_quiver with cfg.mesh.multihost on phase 5's inputs in two
+   processes of one gloo world sharing cuda:0: the canonical 3-unzip/
+   files and cns_* byte-identical to phase 5's (else the first differing
+   contig and column), a resume pass that skips every stage on both
+   ranks, each rank's walls and launches beside phase 5's walls (the
+   distributed layer's cost, not scaling);
 5b. the per-base-quality hotspot polish of
    tests/test_qv_aware.py::test_polish_per_base_profile_qv on cuda (15 kb,
    20x reads of 2000 bp at 5% error, arrow_rounds 3), flat and with
@@ -979,11 +997,12 @@ def _stats(lens) -> dict:
             "max_len": lens[0] if lens else 0}
 
 
-def _stage_rows(path, skip: int = 0) -> dict:
-    """{stage: row} of the timed rows of metrics.jsonl after line skip."""
+def _stage_rows(path, skip: int = 0, stop: int | None = None) -> dict:
+    """{stage: row} of the timed rows of metrics.jsonl from line skip up
+    to line stop."""
     stages = {}
     with open(path) as fh:
-        for ln in list(fh)[skip:]:
+        for ln in list(fh)[skip:stop]:
             row = json.loads(ln)
             if "s" in row:
                 row.pop("ts")
@@ -1010,24 +1029,36 @@ def _timed_run(torch, d, cmd, kernels) -> tuple:
     return wall, launches, dev_ms, cells
 
 
-def phase_main(torch, tmp, genome_bp) -> dict:
-    from falcon_unzip_tpu_torch.ops import _kernels
+def _sim_contig(job):
+    """One contig of phase 5's genome: its diploid, 25x preads and 29x raw
+    reads, from its own seeds (run in a worker process)."""
+    ci, per = job
     from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
                                                        simulate_reads)
+    dip = make_diploid(length=per, het_rate=0.012, seed=100 + ci,
+                       het_span=(0.2, 0.8))
+    pr = simulate_reads(dip, coverage=25.0, read_len=2200, error_rate=0.0,
+                        seed=200 + ci)
+    rw = simulate_reads(dip, coverage=29.0, read_len=1800, error_rate=0.03,
+                        seed=300 + ci)
+    return dip, pr.batch, rw.batch
+
+
+def phase_main(torch, tmp, genome_bp) -> dict:
+    import multiprocessing
+    from falcon_unzip_tpu_torch.ops import _kernels
     d = os.path.join(tmp, "main")
     os.makedirs(d)
     t0 = time.perf_counter()
     draft, preads, raw = [], [], []
-    for ci, per in enumerate(_n50_lengths(genome_bp)):
-        dip = make_diploid(length=per, het_rate=0.012, seed=100 + ci,
-                           het_span=(0.2, 0.8))
-        pr = simulate_reads(dip, coverage=25.0, read_len=2200,
-                            error_rate=0.0, seed=200 + ci)
-        rw = simulate_reads(dip, coverage=29.0, read_len=1800,
-                            error_rate=0.03, seed=300 + ci)
+    # the contigs are simulated side by side (each from its own seeds)
+    jobs = list(enumerate(_n50_lengths(genome_bp)))
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        sims = pool.map(_sim_contig, jobs)
+    for ci, (dip, pr, rw) in enumerate(sims):
         draft.append((f"draft{ci}", dip))
-        preads.append((f"c{ci}/", pr.batch))
-        raw.append((f"c{ci}/", rw.batch))
+        preads.append((f"c{ci}/", pr))
+        raw.append((f"c{ci}/", rw))
     _write_inputs(d, draft, preads, raw)
     n_preads = sum(len(b) for _, b in preads)
     n_raw = sum(len(b) for _, b in raw)
@@ -1078,7 +1109,8 @@ def phase_main(torch, tmp, genome_bp) -> dict:
     if min(q_launch.values()) <= 0:
         _fail(f"main quiver did not launch every kernel: {q_launch}")
     return {"launches": {**u_launch, "arrow_splice":
-                         q_launch["arrow_splice"]}, "dir": d}
+                         q_launch["arrow_splice"]}, "dir": d,
+            "unzip_s": unzip_s, "quiver_s": quiver_s}
 
 
 def _union_us(spans) -> float:
@@ -1151,6 +1183,338 @@ def phase_traced(torch, d) -> dict:
         _fail(f"the trace holds {ours} wavefront and traceback kernels, the "
               f"launch counts are {launches}")
     return {"busy_share": busy / span, "span_s": span / 1e6, "wall_s": wall}
+
+
+def phase_sharded_ops(torch, np, devices=("cuda:0",) * 4) -> dict:
+    """Phase 10 (a): every sharded op of parallel/ on a 2 x 2 mesh of
+    ``devices`` (4 logical shards on cuda:0) with the debug checks on,
+    held against the single-device op on cuda:0 at the main path's
+    sizes; each line prints the launches of the sharded call (its
+    shards' and the debug check's single-device one)."""
+    from falcon_unzip_tpu_torch.models.polisher import PolisherConfig
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    from falcon_unzip_tpu_torch.ops.arrow import ArrowSplicer
+    from falcon_unzip_tpu_torch.ops.association import \
+        association_band_batch
+    from falcon_unzip_tpu_torch.ops.pileup import pileup_batch
+    from falcon_unzip_tpu_torch.parallel import collectives, debug, sharding
+    from falcon_unzip_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(window_par=2, device=list(devices))
+    rng = np.random.default_rng(1010)
+    dev = torch.device("cuda:0")
+    debug.enable(True)
+    res = {}
+
+    def launched():
+        return {k.name: k.launches for k in _kernels.KERNELS if k.launches}
+
+    try:
+        # pileup and association at a 1 Mb contig's tag count: 25x 2200
+        # bp preads (11,360), 1.2% het over 60% of it (7,200 sites)
+        t_len, n_tags, R, S, span = 1_000_000, 25_000_000, 11_360, 7_200, 64
+        pos = rng.integers(-1, t_len, n_tags).astype(np.int32)
+        base = rng.integers(0, 5, n_tags).astype(np.int32)
+        ops = sharding.ShardedPhaseOps(mesh)
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        counts = ops.pileup(pos, base, t_len=t_len)
+        pile_s = time.perf_counter() - t0
+        want = pileup_batch(torch.from_numpy(pos[None]).to(dev),
+                            torch.from_numpy(base[None]).to(dev),
+                            t_len=t_len)[0].cpu().numpy()
+        if not np.array_equal(counts, want):
+            _fail("sharded pileup differs from the single-device pileup")
+        M = np.zeros((R, S), np.int8)
+        start = rng.integers(0, S - 20, R)
+        cols = start[:, None] + np.arange(20)[None, :]
+        M[np.arange(R)[:, None], cols] = rng.choice(
+            np.array([-1, 0, 1], np.int8), size=(R, 20), p=[0.45, 0.1, 0.45])
+        t0 = time.perf_counter()
+        score, cov = ops.association(M, max_span=span)
+        assoc_s = time.perf_counter() - t0
+        ws, wc = association_band_batch(torch.from_numpy(M[None]).to(dev),
+                                        max_span=span)
+        if not (np.array_equal(score, ws[0].cpu().numpy())
+                and np.array_equal(cov, wc[0].cpu().numpy())):
+            _fail("sharded association differs from the single-device one")
+        print(f"[10a sharded] mesh {dict(mesh.shape)} on {devices}, debug "
+              f"checks on | pileup of {n_tags} tags over "
+              f"{t_len} bp {pile_s:.2f} s, association of {R} reads x {S} "
+              f"sites, span {span}, {assoc_s:.2f} s: bit-exact | launches "
+              f"{launched()}", flush=True)
+        # window-sharded votes at phase 5's largest contig (500 kb, 29x
+        # 1800 bp raw reads: ~1 tag a read base)
+        t_len, n_tags = 500_000, 14_500_000
+        window = PolisherConfig().window
+        pos = rng.integers(-1, t_len, n_tags).astype(np.int32)
+        delta = np.minimum(rng.geometric(0.7, n_tags) - 1, 10).astype(
+            np.int32)
+        base = rng.integers(0, 5, n_tags).astype(np.int32)
+        votes = sharding.ShardedWindowVotes(mesh)
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        blocks, seg = votes.blocks(pos, delta, base, t_len=t_len,
+                                   window=window)
+        votes_s = time.perf_counter() - t0
+        # the debug check held each segment against vote_matrix; each
+        # halo must be the next segment's head, so every polish window
+        # sliced from one block equals vote_matrix
+        for s in range(votes.nw - 1):
+            if not np.array_equal(blocks[s, seg:], blocks[s + 1, :window]):
+                _fail(f"window-sharded votes: segment {s}'s halo differs "
+                      f"from segment {s + 1}'s head")
+        print(f"[10a sharded] window votes of {n_tags} tags over {t_len} bp"
+              f" ({mesh.shape['window']} segments of {seg}, halo {window})"
+              f" {votes_s:.2f} s: every segment equal to vote_matrix (the "
+              f"debug check), every halo the next segment's head | launches"
+              f" {launched()}", flush=True)
+        # the all_to_all regroup of phase 5's 16,109 raw reads by contig
+        # (6 primaries + 17 haplotigs), and the halo exchange
+        ctg = rng.integers(-1, 23, 16_109).astype(np.int64)
+        t0 = time.perf_counter()
+        groups = collectives.regroup_partition(ctg, 23, mesh)
+        regroup_s = time.perf_counter() - t0
+        if any(not np.array_equal(g, np.nonzero(ctg == k)[0])
+               for k, g in enumerate(groups)):
+            _fail("regroup_partition over the mesh differs from the host "
+                  "group-by")
+        recv, counts, dropped = collectives.make_regroup(
+            mesh, cap=2, feat=2)(np.stack([np.arange(16), np.arange(16)],
+                                          axis=1).astype(np.int32),
+                                 np.zeros(16, np.int32))   # all to shard 0
+        if int(dropped.sum()) != 8 or int(counts.sum()) != 8:
+            _fail(f"regroup overflow: dropped {dropped.tolist()}")
+        x = torch.arange(2 * 50 * 3, dtype=torch.int32).reshape(100, 3)
+        lg, rg = collectives.make_halo_exchange(mesh, halo=7)(x)
+        if not (torch.equal(lg.cpu(), torch.cat([x[-7:], x[43:50]]))
+                and torch.equal(rg.cpu(), torch.cat([x[50:57], x[:7]]))):
+            _fail("halo exchange differs from the shards' edge rows")
+        print(f"[10a sharded] regroup_partition of {len(ctg)} reads into 23 "
+              f"contigs {regroup_s:.2f} s: equal to the host group-by | "
+              f"forced overflow counted | halo exchange exact", flush=True)
+        # Arrow splice at the production polish shape, pairs split 4 ways
+        pc = PolisherConfig()
+        P, L, C = pc.splice_chunk, pc.len_cap(), pc.arrow_candidates
+        q, n, t, m = _windows(np, rng, P, L, (300, 421))
+        qs = [q[k, :n[k]] for k in range(P)]
+        ts = [t[k, :m[k]] for k in range(P)]
+        cands = [list(rng.choice(int(m[k]), size=1 + k % C, replace=False))
+                 for k in range(P)]
+        kw = dict(max_cand=C, chunk=P, fixed_lq=L, fixed_lj=L)
+        sp = sharding.ShardedArrowSplicer(mesh, **kw)
+        _kernels.reset_counts()
+        got = sp(qs, ts, cands)
+        sp_launch = launched()
+        want = ArrowSplicer(device="cuda", **kw)(qs, ts, cands)
+        g_all = np.concatenate([got[0][:, None], got[1].reshape(P, -1)], 1)
+        w_all = np.concatenate([want[0][:, None], want[1].reshape(P, -1)], 1)
+        rel_a = _rel_bar(np, g_all, w_all)
+        warps = (_kernels.arrow_warps(P), _kernels.arrow_warps(P // 4))
+        other = P if warps[0] != warps[1] else 0
+        print(f"[10a sharded] ShardedArrowSplicer P={P} Lq=LJ={L} C={C}: "
+              f"max rel err {rel_a:.3g} (bar 1e-3), NEG slots equal | "
+              f"warps a block: {warps[0]} unsharded (P={P}), {warps[1]} a "
+              f"shard (P={P // 4}): {other} pairs on the other build | "
+              f"launches {sp_launch} (4 shards + the debug check's one)",
+              flush=True)
+        # pair-HMM at phase 4b's launch shape, pairs split 4 ways
+        Pn, W = 7095, 128
+        q, n, t, m = _windows(np, rng, Pn, 512, (300, 500))
+        m[::97] = np.minimum(m[::97], 100)     # corners out of the band
+        sc = sharding.ShardedPairHMMScorer(mesh, W=W)
+        _kernels.reset_counts()
+        got = sc(q, t, n, m)
+        sc_launch = launched()
+        want = ph.PairHMMScorer(W=W, device="cuda")(q, t, n, m)
+        rel_h = _rel_bar(np, got, want)
+        if not (got[want < -1e29] == np.float32(-1e30)).all():
+            _fail("sharded pair-HMM: an out-of-band pair is not exactly NEG")
+        print(f"[10a sharded] ShardedPairHMMScorer P={Pn} Lq=Lt=512 W={W}: "
+              f"{int((want < -1e29).sum())} pairs out of the band, exactly "
+              f"NEG; max rel err {rel_h:.3g} (bar 1e-3) | cells a lane "
+              f"{_kernels.pairhmm_cells(W, Pn)} unsharded, "
+              f"{_kernels.pairhmm_cells(W, -(-Pn // 4))} a shard | launches "
+              f"{sc_launch} (4 shards + the debug check's one)", flush=True)
+        res = {"arrow_launches": sp_launch.get("arrow_splice", 0),
+               "pairhmm_launches": sc_launch.get("pairhmm_forward", 0)}
+    finally:
+        debug.enable(None)
+    return res
+
+
+def _rel_bar(np, got, want) -> float:
+    """max |got - want| / max(1, |want|); fails over 1e-3 or where the
+    NEG slots differ."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    neg = want < -1e29
+    if not np.array_equal(got < -1e29, neg) or not np.isfinite(got).all():
+        _fail("sharded and single-device NEG slots differ")
+    rel = (np.abs(got - want) / np.maximum(1.0, np.abs(want)))[~neg]
+    worst = float(rel.max()) if rel.size else 0.0
+    if worst > 1e-3:
+        _fail(f"sharded op off the single-device op by {worst} relative")
+    return worst
+
+
+_RANK_WORKER = r"""
+import json, os, sys, time
+import torch
+from falcon_unzip_tpu_torch.config import load_config
+from falcon_unzip_tpu_torch.ops import _kernels
+from falcon_unzip_tpu_torch.parallel import distributed as dist
+from falcon_unzip_tpu_torch.parallel.checkpoint import Stage
+from falcon_unzip_tpu_torch.pipeline.quiver import run_quiver
+from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
+cfg = load_config(sys.argv[1])
+cfg.out_dir = sys.argv[2]
+cfg.mesh.multihost = True
+torch.backends.cuda.matmul.allow_tf32 = False
+res = {}
+for stage, run in (("unzip", run_unzip), ("quiver", run_quiver)):
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    run(cfg, device="cuda")
+    torch.cuda.synchronize()
+    res[stage + "_s"] = time.perf_counter() - t0
+    res[stage + "_launches"] = {k.name: k.launches for k in _kernels.KERNELS
+                                if k.launches}
+    if stage == "unzip" and dist.is_primary_host():
+        with open(os.path.join(cfg.out_dir, "metrics.jsonl")) as fh:
+            res["unzip_rows"] = sum(1 for _ in fh)
+skipped = []
+real = Stage.run
+def spy(self, fn):
+    ran = real(self, fn)
+    if not ran:
+        skipped.append(self.name)
+    return ran
+Stage.run = spy
+t0 = time.perf_counter()
+run_unzip(cfg, device="cuda")
+run_quiver(cfg, device="cuda")
+res["resume_s"] = time.perf_counter() - t0
+res["skipped"] = sorted(skipped)
+res["rank"] = dist.process_index()
+res["device"] = str(torch.device("cuda", torch.cuda.current_device()))
+print("RANK-RESULT " + json.dumps(res), flush=True)
+"""
+
+_STAGES = ["0-draft", "1-align", "1-track", "2-phasing", "2-polish",
+           "3-hasm"]
+
+
+def _first_diff(np, a, b):
+    """(contig, column) of the first difference of two FASTA / FASTQ
+    texts, by record."""
+    ra = a.decode().splitlines()
+    rb = b.decode().splitlines()
+    step = 4 if ra and ra[0].startswith("@") else 2
+    for k in range(0, max(len(ra), len(rb)), step):
+        x = ra[k:k + step]
+        y = rb[k:k + step]
+        if x != y:
+            name = (x or y)[0][1:]
+            for line_x, line_y in zip(x[1:], y[1:]):
+                if line_x != line_y:
+                    col = next((i for i, (c, d) in enumerate(
+                        zip(line_x, line_y)) if c != d),
+                        min(len(line_x), len(line_y)))
+                    return name, col
+            return name, 0
+    return None, None
+
+
+def phase_two_ranks(torch, np, main_run) -> dict:
+    """Phase 10 (b): run_unzip then run_quiver with cfg.mesh.multihost on
+    phase 5's 1 Mb inputs in two processes of one gloo world that share
+    cuda:0; the canonical 3-unzip/ and cns_* files must be byte-identical
+    to phase 5's, and a resume pass must skip every stage on both ranks.
+    Two ranks on one card measure the distributed layer's cost, not
+    scaling."""
+    import socket
+    from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
+    d = main_run["dir"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2", PYTHONPATH=here)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_WORKER, f"{d}/run.json", f"{d}/mp"],
+            cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=420)[0])
+    except subprocess.TimeoutExpired:
+        _fail("a rank of the two-process run timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("RANK-RESULT ")]
+        if p.returncode != 0 or not line:
+            print(out[-4000:], flush=True)
+            _fail(f"rank {i} of the two-process run exited {p.returncode}")
+        ranks.append(json.loads(line[-1][len("RANK-RESULT "):]))
+    got = run_artifacts(f"{d}/mp", ("3-unzip/*", "4-polish/cns_*"))
+    want = run_artifacts(f"{d}/out", ("3-unzip/*", "4-polish/cns_*"))
+    if sorted(got) != sorted(want):
+        _fail(f"two-rank files {sorted(got)} != phase 5's {sorted(want)}")
+    differ = [rel for rel in want if got[rel] != want[rel]]
+    for rel in differ:
+        if "/cns_" in rel:
+            ctg, col = _first_diff(np, want[rel], got[rel])
+            print(f"[10b two ranks] {rel} differs from phase 5's: first at "
+                  f"contig {ctg}, column {col}", flush=True)
+    if differ:
+        _fail(f"two-rank run differs from phase 5's in {differ}")
+    for r in ranks:
+        if r["skipped"] != _STAGES:
+            _fail(f"rank {r['rank']} resume skipped {r['skipped']}, not "
+                  f"every stage {_STAGES}")
+    n = ranks[0]["unzip_rows"]
+    u_rows = _stage_rows(f"{d}/mp/metrics.jsonl", 0, n)
+    q_rows = _stage_rows(f"{d}/mp/metrics.jsonl", n)
+    print(f"[10b two ranks] run_unzip + run_quiver with multihost on phase "
+          f"5's 1 Mb inputs, 2 gloo ranks sharing cuda:0 (the distributed "
+          f"layer's cost, not scaling) | wall {wall:.1f} s with process "
+          f"start | rank 0: unzip {ranks[0]['unzip_s']:.1f} s, quiver "
+          f"{ranks[0]['quiver_s']:.1f} s, resume {ranks[0]['resume_s']:.1f}"
+          f" s; rank 1: unzip {ranks[1]['unzip_s']:.1f} s, quiver "
+          f"{ranks[1]['quiver_s']:.1f} s | phase 5 in this call: unzip "
+          f"{main_run['unzip_s']:.1f} s, quiver {main_run['quiver_s']:.1f} "
+          f"s | rank 0 stages: unzip {u_rows}, quiver {q_rows}", flush=True)
+    print(f"[10b two ranks] launches rank 0 unzip "
+          f"{ranks[0]['unzip_launches']} quiver "
+          f"{ranks[0]['quiver_launches']}; rank 1 unzip "
+          f"{ranks[1]['unzip_launches']} quiver {ranks[1]['quiver_launches']}"
+          f" | devices {[r['device'] for r in ranks]} | {len(want)} "
+          f"canonical files byte-identical to phase 5's | resume skipped "
+          f"every stage on both ranks", flush=True)
+    launches = {}
+    for r in ranks:
+        for stage in ("unzip_launches", "quiver_launches"):
+            for k, v in r[stage].items():
+                launches[k] = launches.get(k, 0) + v
+    if min(launches.get(k, 0) for k in ("banded_wavefront", "traceback",
+                                         "arrow_splice")) <= 0:
+        _fail(f"the two ranks did not launch every main-path kernel: "
+              f"{launches}")
+    return {"launches": launches, "ranks": ranks}
 
 
 def phase_hotspot(torch, np) -> dict:
@@ -1354,11 +1718,12 @@ def phase_falcon_sense(torch) -> dict:
     cpu = fs.FalconSense(fs.ConsensusConfig(), "cpu")(template[:cut], sub)
     cpu_s = time.perf_counter() - t0
     same = card.dtype == cpu.dtype and card.tobytes() == cpu.tobytes()
-    print(f"[9 falcon_sense] 100 kb cut, {len(sub)} reads: card {card_s:.1f}"
-          f" s, CPU {cpu_s:.1f} s, consensus of {len(card)} bp "
+    print(f"[9 falcon_sense] {cut // 1000} kb cut, {len(sub)} reads: card "
+          f"{card_s:.1f} s, CPU {cpu_s:.1f} s, consensus of {len(card)} bp "
           f"{'byte-equal' if same else 'DIFFERS'}", flush=True)
     if not same:
-        _fail("FalconSense on the 100 kb cut: card and CPU consensus differ")
+        _fail(f"FalconSense on the {cut // 1000} kb cut: card and CPU "
+              "consensus differ")
     return {"launches": launches, "ms": dev_ms, "identity": ident}
 
 
@@ -1399,6 +1764,8 @@ def main(argv=None) -> int:
         phase_cli(np, golden_dir)
         main_run = phase_main(torch, tmp, args.genome_bp)
         phase_traced(torch, main_run["dir"])
+        phase_sharded_ops(torch, np)
+        phase_two_ranks(torch, np, main_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_hotspot(torch, np)

@@ -105,17 +105,20 @@ class PolishCfg:
 
 @dataclasses.dataclass
 class MeshCfg:
-    n_devices: int = 0           # 0 = all available
+    n_devices: int = 0           # 0 = all visible cards (CPU: one device;
+                                 # n > 1 on the CPU = n logical shards)
     window_par: int = 0          # 0 = auto
     # sharding-invariant debug mode (SURVEY.md §5 race detection): every
     # mesh-sharded op re-executes its single-device reference and
     # asserts equality (parallel.debug); also FALCON_UNZIP_TPU_DEBUG_SHARDING=1
     debug_sharding: bool = False
-    # multi-host (jax.distributed) execution: when true the drivers call
-    # parallel.distributed.initialize() (coordinator/process env vars or
-    # TPU pod metadata), host-shard the aligner/overlapper input, run the
-    # sharded device steps over the GLOBAL mesh, and emit canonical
-    # artifacts from host 0 only (other hosts write .host<k>/ scratch).
+    # multi-host (torch.distributed, gloo) execution: when true the
+    # drivers call parallel.distributed.initialize() (torchrun's
+    # MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK), host-shard the
+    # aligner/overlapper input, route records to each contig's owner
+    # host, run the device work on each host's own mesh, and emit
+    # canonical artifacts from host 0 only (other hosts write .host<k>/
+    # scratch).
     multihost: bool = False
 
 

@@ -87,12 +87,15 @@ def flat_delta0_tags(aln: AlnSet, rec_idx: np.ndarray):
 
 def phase_contig_device(aln: AlnSet, ctg: int, t_len: int,
                         cfg: PhasingConfig | None = None,
-                        device=None) -> ContigPhasing:
+                        device=None, phase_ops=None) -> ContigPhasing:
     """Run the full phasing stage for one contig with device ops.
 
     The ops are the batched ones with a contig axis of 1 (per-contig
     slices of the batched ops are bit-identical to the single-contig
-    ones of the reference).
+    ones of the reference).  phase_ops: optional
+    ``parallel.sharding.ShardedPhaseOps`` — routes the pileup +
+    association through mesh-sharded collectives (bit-identical integer
+    semantics); None = the single-device ops on ``device``.
     """
     cfg = cfg or PhasingConfig()
     dev = resolve(device)
@@ -109,16 +112,26 @@ def phase_contig_device(aln: AlnSet, ctg: int, t_len: int,
     row_b = np.zeros((1, Nb), np.int32)
     row_b[0, : len(row)] = row
 
-    is_het, b1_all, b2_all, cpad = pileup_het_batch(
-        _t(pos_b, dev), _t(base_b, dev), t_len=Tb,
-        min_depth=cfg.min_depth, min_allele_count=cfg.min_allele_count,
-        allele_freq_min=cfg.allele_freq_min,
-        biallelic_frac=cfg.biallelic_frac, with_counts=True)
-    counts = cpad[0].cpu().numpy()[:t_len]
-    het_pos = np.nonzero(is_het[0].cpu().numpy()[:t_len])[0].astype(
-        np.int64)
-    b1 = b1_all[0].cpu().numpy()[het_pos]
-    b2 = b2_all[0].cpu().numpy()[het_pos]
+    het_kw = dict(min_depth=cfg.min_depth,
+                  min_allele_count=cfg.min_allele_count,
+                  allele_freq_min=cfg.allele_freq_min,
+                  biallelic_frac=cfg.biallelic_frac)
+    if phase_ops is not None:
+        # rows beyond t_len are zero, so the full (Tb, 5) counts feed the
+        # het call directly; only the stored counts field is sliced
+        cpad = phase_ops.pileup(pos_b[0], base_b[0], t_len=Tb)
+        is_het, b1_all, b2_all = het_call_host(cpad, **het_kw)
+    else:
+        is_het, b1_all, b2_all, cp = pileup_het_batch(
+            _t(pos_b, dev), _t(base_b, dev), t_len=Tb, with_counts=True,
+            **het_kw)
+        cpad = cp[0].cpu().numpy()
+        is_het, b1_all, b2_all = (x[0].cpu().numpy()
+                                  for x in (is_het, b1_all, b2_all))
+    counts = cpad[:t_len]
+    het_pos = np.nonzero(is_het[:t_len])[0].astype(np.int64)
+    b1 = b1_all[het_pos]
+    b2 = b2_all[het_pos]
     S = len(het_pos)
     R = len(rec_idx)
     if S == 0 or R == 0:
@@ -143,9 +156,13 @@ def phase_contig_device(aln: AlnSet, ctg: int, t_len: int,
         _t(row_b, dev), _t(pos_b, dev), _t(base_b, dev),
         _t(pos_to_site, dev), _t(b1_b, dev), _t(b2_b, dev),
         n_reads=Rb, n_sites=Sb, t_len=Tb)
-    score, cov = association_band_batch(M, max_span=cfg.max_span)
-    block_id, orient = phase_blocks(score[0].cpu().numpy()[:S],
-                                    cov[0].cpu().numpy()[:S], S, cfg)
+    if phase_ops is not None:
+        score, cov = phase_ops.association(M[0].cpu().numpy(),
+                                           max_span=cfg.max_span)
+    else:
+        score, cov = (x[0].cpu().numpy() for x in association_band_batch(
+            M, max_span=cfg.max_span))
+    block_id, orient = phase_blocks(score[:S], cov[:S], S, cfg)
 
     n_blocks = int(block_id.max()) + 1 if S else 0
     if n_blocks == 0:

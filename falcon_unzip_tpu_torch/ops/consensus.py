@@ -1,17 +1,18 @@
-"""Align-tag votes -> consensus emission on the host.
+"""Align-tag votes -> consensus emission, on the host and on a device.
 
-Port of the numpy half of ``falcon_unzip_tpu.ops.consensus`` (the
-reference module imports JAX for its jit twins).  ``_masks``,
+Port of ``falcon_unzip_tpu.ops.consensus``.  ``_masks``,
 ``compact_masks``, ``consensus_from_votes``, ``consensus_with_map`` and
 ``vote_matrix`` are verbatim copies: per (t_pos, delta) column voting with
 majority-gated insertion columns, byte-equal to
-``oracle.consensus.consensus_from_votes``.  The device twins
-(``consensus_masks_device``, ``votes_scatter``) serve only the sharded
-polish of ``parallel/`` and are not ported yet.
+``oracle.consensus.consensus_from_votes``.  The device twins are torch
+ops on the votes' device: ``votes_scatter`` (the window-sharded votes of
+``parallel.sharding.ShardedWindowVotes`` build on it) and
+``consensus_masks_device`` (``_masks`` in torch).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..oracle.align import GAP
 from ..oracle.consensus import MAX_DELTA
@@ -70,6 +71,58 @@ def _masks(xp, votes, template, min_cov: int, del_min_cov: int = 0):
     else:
         emit, base, covs = emit0[:, None], base0[:, None], cov0[:, None]
     return emit, base, covs
+
+
+def _masks_torch(votes: torch.Tensor, template, min_cov: int,
+                 del_min_cov: int = 0):
+    """``_masks`` on a torch vote tensor, step for step (argmax returns
+    the first maximal index in both)."""
+    i32 = torch.int32
+    t_len, D, _ = votes.shape
+    d0 = votes[:, 0, :]
+    cov = d0.sum(dim=1)
+    lowcov = cov < min_cov
+    win = torch.argmax(d0, dim=1)                   # ties -> smaller code
+    win_cnt = d0.gather(1, win[:, None])[:, 0]
+
+    if template is not None:
+        tmpl = torch.as_tensor(template, device=votes.device).to(i32)
+        tmpl_ok = (tmpl >= 0) & (tmpl < 4)
+        del_guard = (win == GAP) & (cov < del_min_cov) & tmpl_ok
+        sub_guard = ((del_min_cov > 0) & (win_cnt < 3)
+                     & (win_cnt < cov) & tmpl_ok & (win != GAP))
+        emit0 = torch.where(lowcov, True, (win != GAP) | del_guard)
+        base0 = torch.where(lowcov | del_guard | sub_guard,
+                            tmpl, win.to(i32)).to(i32)
+    else:
+        emit0 = torch.where(lowcov, False, win != GAP)
+        base0 = win.to(i32)
+    cov0 = torch.where(lowcov, 0, win_cnt).to(i32)
+
+    if D > 1:
+        col = votes[:, 1:, :4]
+        ins = torch.argmax(col, dim=2).to(i32)
+        cmax = col.max(dim=2).values
+        sup = ((2 * cmax > cov[:, None]) & (cmax > 0)
+               & (~lowcov[:, None]))
+        # the oracle breaks at the first unsupported delta: cumulative AND
+        emit_ins = torch.cumprod(sup.to(i32), dim=1).to(torch.bool)
+        emit = torch.cat([emit0[:, None], emit_ins], dim=1)
+        base = torch.cat([base0[:, None], ins], dim=1)
+        covs = torch.cat([cov0[:, None], cmax.to(i32)], dim=1)
+    else:
+        emit, base, covs = emit0[:, None], base0[:, None], cov0[:, None]
+    return emit, base, covs
+
+
+def consensus_masks_device(votes, template=None, min_cov: int = 1):
+    """Emit grid of a device-resident vote tensor (torch ops on its
+    device).
+
+    Returns (emit (t_len, D) bool, base (t_len, D) int32, cov (t_len, D)
+    int32); compact with ``compact_masks`` (host) once results land."""
+    votes = torch.as_tensor(votes)
+    return _masks_torch(votes, template, min_cov)
 
 
 def compact_masks(emit, base, covs):
@@ -134,3 +187,23 @@ def vote_matrix(tags_list, t_len: int, max_delta: int = MAX_DELTA):
     tg = tg[ok]
     np.add.at(votes, (tg[:, 0], tg[:, 1], tg[:, 2]), 1)
     return votes
+
+
+def votes_scatter(pos, delta, base, *, t_len: int,
+                  max_delta: int = MAX_DELTA) -> torch.Tensor:
+    """Device scatter of flat (pos, delta, base) tags into a vote tensor
+    (t_len, max_delta + 1, 5) int32 on the tags' device.
+
+    Out-of-range rows (pos < 0/>= t_len, delta > max_delta) are dumped
+    into a sacrificial slot and cropped — same convention as the
+    reference's ``votes_scatter``.  Integer accumulation is order-free.
+    """
+    pos, delta, base = (torch.as_tensor(x) for x in (pos, delta, base))
+    ok = (pos >= 0) & (pos < t_len) & (delta <= max_delta)
+    p = torch.where(ok, pos, t_len).long()
+    d = torch.where(ok, delta, 0).clamp(0, max_delta).long()
+    votes = torch.zeros((t_len + 1, max_delta + 1, 5), dtype=torch.int32,
+                        device=pos.device)
+    votes.index_put_((p, d, base.clamp(0, 4).long()),
+                     torch.ones_like(p, dtype=torch.int32), accumulate=True)
+    return votes[:t_len]

@@ -40,6 +40,20 @@ def _het_core(counts: torch.Tensor, *, min_depth: int,
     return is_het, b1.to(torch.int8), b2.to(torch.int8)
 
 
+def pileup_batch(pos: torch.Tensor, base: torch.Tensor, *,
+                 t_len: int) -> torch.Tensor:
+    """Batched pileup: (G, N) int32 flat delta-0 tags per contig (pos < 0
+    pads; out-of-range positions are dropped) -> counts (G, t_len, 5)
+    int32, one bincount of flat (contig, pos, base) keys."""
+    G, N = pos.shape
+    ok = (pos >= 0) & (pos < t_len)
+    p = torch.where(ok, pos, t_len).to(torch.int64)
+    g = torch.arange(G, dtype=torch.int64, device=pos.device)[:, None]
+    key = (g * (t_len + 1) + p) * 5 + base.clamp(0, 4).to(torch.int64)
+    counts = torch.bincount(key.reshape(-1), minlength=G * (t_len + 1) * 5)
+    return counts.reshape(G, t_len + 1, 5)[:, :t_len].to(torch.int32)
+
+
 def pileup_het_batch(pos: torch.Tensor, base: torch.Tensor, *, t_len: int,
                      min_depth: int, min_allele_count: int,
                      allele_freq_min: float, biallelic_frac: float,
@@ -51,14 +65,8 @@ def pileup_het_batch(pos: torch.Tensor, base: torch.Tensor, *, t_len: int,
     (G, t_len) [, counts (G, t_len, 5) int32].  Integer counts are
     order-free, so the result does not depend on the reduction order.
     """
-    G, N = pos.shape
-    dev = pos.device
-    ok = (pos >= 0) & (pos < t_len)
-    p = torch.where(ok, pos, t_len).to(torch.int64)
-    g = torch.arange(G, dtype=torch.int64, device=dev)[:, None]
-    key = (g * (t_len + 1) + p) * 5 + base.clamp(0, 4).to(torch.int64)
-    counts = torch.bincount(key.reshape(-1), minlength=G * (t_len + 1) * 5)
-    counts = counts.reshape(G, t_len + 1, 5)[:, :t_len].to(torch.int32)
+    G = pos.shape[0]
+    counts = pileup_batch(pos, base, t_len=t_len)
     is_het, b1, b2 = _het_core(
         counts.reshape(G * t_len, 5), min_depth=min_depth,
         min_allele_count=min_allele_count,

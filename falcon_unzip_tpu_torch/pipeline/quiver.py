@@ -1,17 +1,20 @@
-"""4-polish pipeline driver (the fc_quiver.py role) on one torch device.
+"""4-polish pipeline driver (the fc_quiver.py role).
 
-Port of ``falcon_unzip_tpu.pipeline.quiver`` for a single process on one
-device.  Same stages, Stage markers, resume and persisted AlnSet as the
-reference: raw reads are aligned to the combined p_ctg + h_ctg reference
-(1-track), routed by phase against each primary, and every contig is
-polished with the windowed vote + Arrow splice stage (2-polish), the
-splice sweeps on ``device``.  With one device the reference builds no
-mesh, so the splicer is the plain ``ArrowSplicer`` and the votes are
-built on the host; that path is the one mirrored here.  With
+Port of ``falcon_unzip_tpu.pipeline.quiver``.  Same stages, Stage
+markers, resume and persisted AlnSet as the reference: raw reads are
+aligned to the combined p_ctg + h_ctg reference (1-track), routed by
+phase against each primary, and every contig is polished with the
+windowed vote + Arrow splice stage (2-polish), the splice sweeps on
+``device``.  With one device the splicer is the plain ``ArrowSplicer``
+and the votes are built on the host; over a mesh (``cfg.mesh.n_devices
+> 1`` or several visible cards) the splice pairs are split over it
+(``parallel.sharding.ShardedArrowSplicer``) and, with a 'window' axis,
+so is each contig's vote tensor (``ShardedWindowVotes``).
+``cfg.mesh.multihost``: each host aligns its shard of the raw reads,
+records go to their contig's owner host, each host polishes the contigs
+it owns, and host 0 gathers and writes the canonical ``cns_*`` files
+(3-unzip is read from ``cfg.out_dir`` on every host).  With
 ``cfg.profile_dir`` set the whole run is traced (``utils.profiling``).
-Not ported yet (each raises NotImplementedError): multi-host runs
-(``cfg.mesh.multihost``) and a mesh of more than one device
-(``cfg.mesh.n_devices > 1``).
 
 Outputs (under <out>/4-polish/):
   cns_p_ctg.fasta / cns_p_ctg.fastq
@@ -34,10 +37,12 @@ from ..io.ingest import read_seqs
 from ..io.serialize import serialize
 from ..models.aligner import AlignerConfig, AlnSet, ReadToContigAligner
 from ..models.phaser import template_route_votes
-from ..models.polisher import Polisher, PolisherConfig, phred_to_tiers
+from ..models.polisher import (Polisher, PolishedContig, PolisherConfig,
+                               phred_to_tiers, tier_table)
 from ..ops.pairhmm import params_vector
 from ..oracle.hmm import params_for_read_qv
 from ..oracle.phasing import PhasingConfig
+from ..parallel import distributed as dist
 from ..parallel.checkpoint import Stage
 from ..seq import decode
 from ..utils.metrics import MetricsLog, assembly_stats
@@ -47,12 +52,10 @@ logger = logging.getLogger(__name__)
 
 def run_quiver(cfg: PipelineConfig, device) -> dict:
     """Run 4-polish on ``device`` (e.g. "cuda" or "cpu") over the
-    3-unzip outputs in ``cfg.out_dir``."""
+    3-unzip outputs in ``cfg.out_dir`` (in a world of processes "cuda"
+    is each process's own card)."""
     if cfg.mesh.multihost:
-        raise NotImplementedError("multi-host runs are not ported yet")
-    if cfg.mesh.n_devices > 1:
-        raise NotImplementedError("a mesh of more than one device is not "
-                                  "ported yet")
+        dist.initialize()
     dev = _device.resolve(device)
     if cfg.profile_dir:  # torch.profiler trace around the whole run
         from ..utils.profiling import device_trace
@@ -62,10 +65,21 @@ def run_quiver(cfg: PipelineConfig, device) -> dict:
 
 
 def _run_quiver(cfg: PipelineConfig, dev) -> dict:
+    # ---- multi-host (see pipeline.unzip): canonical 3-unzip inputs are
+    # always read from host 0's out_dir; non-primary hosts write scratch
+    if cfg.mesh.debug_sharding:
+        from ..parallel import debug
+        debug.enable(True)
+    multi = dist.process_count() > 1
+    out_root = cfg.out_dir
+    if multi and not dist.is_primary_host():
+        out_root = os.path.join(cfg.out_dir,
+                                f".host{dist.process_index()}")
+    sync = dist.sync_stage_done if multi else None
     unzip_dir = os.path.join(cfg.out_dir, "3-unzip")
-    out = os.path.join(cfg.out_dir, "4-polish")
+    out = os.path.join(out_root, "4-polish")
     os.makedirs(out, exist_ok=True)
-    metrics = MetricsLog(os.path.join(cfg.out_dir, "metrics.jsonl"))
+    metrics = MetricsLog(os.path.join(out_root, "metrics.jsonl"))
 
     p_path = os.path.join(unzip_dir, "all_p_ctg.fa")
     h_path = os.path.join(unzip_dir, "all_h_ctg.fa")
@@ -85,34 +99,56 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
     reads = read_seqs(reads_path)   # FASTA/FASTQ/BAM or .fofn of them
     logger.info("polish: %d reads vs %d contigs", len(reads), len(contigs))
 
+    # ---- contig-owner partition over p_ctg + h_ctg: the owner host
+    # window-preps and polishes only its contigs
+    n_hosts = dist.process_count()
+    owners = dist.contig_owners([len(c) for c in contigs], n_hosts)
+    my_host = dist.process_index()
+
     # reads are aligned once, lazily: if every stage below is up to date
     # on resume, the alignment never runs
     _aln: dict = {}
 
     def get_aln():
-        """The AlnSet, persisted next to 1-track (written by _track,
-        reloaded here while the stage is up to date) so a kill
+        """Owned-contig AlnSet (multi: records routed to contig owners).
+
+        Single-host runs persist the AlnSet next to 1-track (written by
+        _track, reloaded here while the stage is up to date) so a kill
         mid-polish resumes without re-paying the raw-read alignment."""
         if "a" not in _aln:
-            blob = os.path.join(out, "1-track", "aln_set.msgpack")
-            probe = Stage(out, "1-track",
-                          inputs=[reads_path, p_path, h_path],
-                          outputs=["read_to_contig_map.msgpack"],
-                          resume=cfg.resume)
-            if cfg.resume and probe.is_done() and os.path.exists(blob):
-                _t0 = time.perf_counter()
-                with open(blob, "rb") as fh:
-                    _aln["a"] = AlnSet.from_bytes(fh.read())
-                metrics.log("align_reload",
-                            s=round(time.perf_counter() - _t0, 2))
-                return _aln["a"]
+            if not multi:
+                blob = os.path.join(out, "1-track", "aln_set.msgpack")
+                probe = Stage(out, "1-track",
+                              inputs=[reads_path, p_path, h_path],
+                              outputs=["read_to_contig_map.msgpack"],
+                              resume=cfg.resume)
+                if cfg.resume and probe.is_done() \
+                        and os.path.exists(blob):
+                    _t0 = time.perf_counter()
+                    with open(blob, "rb") as fh:
+                        _aln["a"] = AlnSet.from_bytes(fh.read())
+                    metrics.log("align_reload",
+                                s=round(time.perf_counter() - _t0, 2))
+                    return _aln["a"]
             _t0 = time.perf_counter()
             aligner = ReadToContigAligner(contigs, AlignerConfig(
                 k=cfg.align.k, band=cfg.align.band,
                 window_pad=cfg.align.window_pad,
                 min_identity=cfg.align.min_identity,
                 batch_pairs=cfg.align.batch_pairs), device=dev)
-            _aln["a"] = aligner.align_batch(reads)
+            if multi:
+                # host-sharded raw-read alignment, then owner routing
+                # (see pipeline.unzip.get_aln)
+                local = aligner.align_batch(
+                    reads, read_range=dist.host_shard(len(reads)))
+                rec_owner = owners[local.ctg]
+                blobs = [local.subset(rec_owner == d).to_bytes()
+                         for d in range(n_hosts)]
+                _aln["a"] = AlnSet.merge(
+                    [AlnSet.from_bytes(b)
+                     for b in dist.exchange_to_owners(blobs)])
+            else:
+                _aln["a"] = aligner.align_batch(reads)
             metrics.log("align_compute",
                         s=round(time.perf_counter() - _t0, 2),
                         **aligner.timings)
@@ -121,16 +157,25 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
     # ---- stage 1: track reads -> combined reference (rr_hctg_track role)
     track_stage = Stage(out, "1-track", inputs=[reads_path, p_path, h_path],
                         outputs=["read_to_contig_map.msgpack"],
-                        resume=cfg.resume)
+                        resume=cfg.resume, sync=sync)
 
     def _track(st: Stage):
         aln = get_aln()
-        r2c = {int(aln.read_id[a]): int(aln.ctg[a]) for a in range(len(aln))}
+        rid, ctg = aln.read_id, aln.ctg
+        if multi:
+            parts = [dist.unpack_arrays(b) for b in dist.allgather_bytes(
+                dist.pack_arrays({"rid": rid, "ctg": ctg}))]
+            rid = np.concatenate([p["rid"] for p in parts])
+            ctg = np.concatenate([p["ctg"] for p in parts])
+            order = np.argsort(rid, kind="stable")
+            rid, ctg = rid[order], ctg[order]
+        r2c = {int(rid[a]): int(ctg[a]) for a in range(len(rid))}
         serialize(st.out("read_to_contig_map.msgpack"), r2c)
-        tmp = st.out("aln_set.msgpack.tmp")
-        with open(tmp, "wb") as fh:
-            fh.write(aln.to_bytes())
-        os.replace(tmp, st.out("aln_set.msgpack"))
+        if not multi:
+            tmp = st.out("aln_set.msgpack.tmp")
+            with open(tmp, "wb") as fh:
+                fh.write(aln.to_bytes())
+            os.replace(tmp, st.out("aln_set.msgpack"))
         return {"n_aligned": len(r2c)}
 
     track_stage.run(_track)
@@ -140,9 +185,12 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
         out, "2-polish", inputs=[reads_path, p_path, h_path],
         outputs=["../cns_p_ctg.fasta", "../cns_p_ctg.fastq",
                  "../cns_h_ctg.fasta", "../cns_h_ctg.fastq"],
-        resume=cfg.resume)
+        resume=cfg.resume, sync=sync)
 
     def _polish(st: Stage):
+        from ..parallel.sharding import (ShardedArrowSplicer,
+                                         ShardedWindowVotes,
+                                         make_pipeline_mesh)
         pcfg = PolisherConfig(
             window=cfg.polish.window, overlap=cfg.polish.overlap,
             min_cov=cfg.polish.min_cov,
@@ -177,9 +225,25 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
                  for q in reads.mean_qv])
             logger.info("qv-aware polish: %d reads with quality tiers",
                         int((reads.mean_qv > 0).sum()))
-        polisher = Polisher(pcfg, read_pvecs=read_pvecs,
-                            read_qtiers=read_qtiers, device=dev)
-        my = np.arange(len(contigs))
+        # contig-owner dataflow: device work is per-host, mesh local
+        mesh = make_pipeline_mesh(cfg.mesh.n_devices, cfg.mesh.window_par,
+                                  device=dev, local_only=multi)
+        splicer = ShardedArrowSplicer(
+            mesh, max_cand=pcfg.arrow_candidates,
+            chunk=pcfg.splice_chunk, fixed_lq=pcfg.len_cap(),
+            fixed_lj=pcfg.len_cap(),
+            tier_params=(tier_table(pcfg.params)
+                         if read_qtiers is not None else None)) \
+            if mesh is not None else None
+        vote_ops = ShardedWindowVotes(mesh) \
+            if mesh is not None and mesh.shape["window"] > 1 else None
+        if mesh is not None:
+            logger.info("polish scoring over mesh %s", mesh)
+        polisher = Polisher(pcfg, splicer=splicer, vote_ops=vote_ops,
+                            read_pvecs=read_pvecs, read_qtiers=read_qtiers,
+                            device=dev)
+        my = (np.nonzero(owners == my_host)[0] if multi
+              else np.arange(len(contigs)))
         aln = get_aln()
         seg_excl = None
         if cfg.polish.phase_aware:
@@ -226,11 +290,31 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
             metrics.log("polish_phase_route", n_dropped=n_drop,
                         s=round(time.perf_counter() - _t0, 2))
         _t0 = time.perf_counter()
-        polished = polisher.polish_all(
+        local_polished = polisher.polish_all(
             [(names[int(i)], contigs[int(i)]) for i in my], aln,
             ids=[int(i) for i in my], seg_exclude=seg_excl)
         metrics.log("polish_windows",
                     s=round(time.perf_counter() - _t0, 2))
+        if multi:
+            # gather per-contig pieces to host 0 (canonical emitter)
+            cols = {"idx": np.asarray(my, np.int64)}
+            for j, c in enumerate(local_polished):
+                cols[f"s{j}"] = c.seq
+                cols[f"q{j}"] = c.qv
+            got = dist.gather_to_primary(dist.pack_arrays(cols))
+            if got is None:
+                return {}
+            by_idx = {}
+            for blob in got:
+                part = dist.unpack_arrays(blob)
+                for j, gi in enumerate(part["idx"]):
+                    gi = int(gi)
+                    by_idx[gi] = PolishedContig(
+                        name=names[gi], seq=part[f"s{j}"],
+                        qv=part[f"q{j}"])
+            polished = [by_idx[i] for i in range(len(contigs))]
+        else:
+            polished = local_polished
         p_out = [c for i, c in enumerate(polished) if i < n_primary]
         h_out = [c for i, c in enumerate(polished) if i >= n_primary]
         _emit(out, "cns_p_ctg", p_out)
@@ -247,6 +331,8 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
     stats = polish_stage.metrics()
     metrics.log("polish", **stats)
     logger.info("polish done: %s", stats)
+    if multi:
+        dist.barrier("quiver-done")
     return {**stats, "out_dir": out}
 
 

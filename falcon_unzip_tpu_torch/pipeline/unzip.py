@@ -1,12 +1,16 @@
-"""3-unzip pipeline driver (the fc_unzip.py role) on one torch device.
+"""3-unzip pipeline driver (the fc_unzip.py role).
 
-Port of ``falcon_unzip_tpu.pipeline.unzip`` for a single process on one
-device.  Same stages, Stage markers, resume, persisted AlnSet and overlap
-prefetch as the reference; every device step runs on ``device``.  With
-``cfg.profile_dir`` set the whole run is traced (``utils.profiling``).
-Not ported yet (each raises NotImplementedError): multi-host runs
-(``cfg.mesh.multihost``) and a mesh of more than one device
-(``cfg.mesh.n_devices > 1``).
+Port of ``falcon_unzip_tpu.pipeline.unzip``.  Same stages, Stage
+markers, resume, persisted AlnSet and overlap prefetch as the reference;
+every device step runs on ``device``.  ``cfg.mesh.n_devices > 1`` (or
+several visible cards) phases each contig over a ('data', 'window') mesh
+(``parallel.sharding.ShardedPhaseOps``).  ``cfg.mesh.multihost`` joins a
+world of processes (``parallel.distributed``): each host aligns and
+overlaps its shard of the preads, records are routed to their contig's
+owner host, each host phases the contigs it owns, and host 0 builds the
+graph and writes the canonical artifacts (the others write scratch
+under ``.host<k>/``).  With ``cfg.profile_dir`` set the whole run is
+traced (``utils.profiling``).
 
 Outputs (under <out>/3-unzip/):
   all_p_ctg.fa, all_h_ctg.fa         — primary contigs + haplotigs
@@ -29,11 +33,14 @@ from ..coords import write_m4
 from ..io.fasta import read_fasta, write_fasta
 from ..io.serialize import deserialize, serialize
 from ..models.aligner import AlignerConfig, AlnSet, ReadToContigAligner
-from ..models.overlapper import OverlapperConfig, PreadOverlapper
-from ..models.phaser import phase_contigs_batched, phased_reads_table
+from ..models.overlapper import (OverlapperConfig, OverlapSet,
+                                 PreadOverlapper)
+from ..models.phaser import (phase_contig_device, phase_contigs_batched,
+                             phased_reads_table)
 from ..models.unzipper import (OvlpFilterConfig, UnzipConfig, Unzipper,
                                phase_filter_mask, place_haplotigs)
 from ..oracle.phasing import PhasingConfig
+from ..parallel import distributed as dist
 from ..parallel.checkpoint import Stage
 from ..seq import SeqBatch, decode
 from ..utils.metrics import MetricsLog, assembly_stats, phase_block_stats
@@ -42,12 +49,10 @@ logger = logging.getLogger(__name__)
 
 
 def run_unzip(cfg: PipelineConfig, device) -> dict:
-    """Run 3-unzip on ``device`` (e.g. "cuda" or "cpu")."""
+    """Run 3-unzip on ``device`` (e.g. "cuda" or "cpu"; in a world of
+    processes "cuda" is each process's own card)."""
     if cfg.mesh.multihost:
-        raise NotImplementedError("multi-host runs are not ported yet")
-    if cfg.mesh.n_devices > 1:
-        raise NotImplementedError("a mesh of more than one device is not "
-                                  "ported yet")
+        dist.initialize()
     dev = _device.resolve(device)
     if cfg.profile_dir:  # torch.profiler trace around the whole run
         from ..utils.profiling import device_trace
@@ -58,7 +63,18 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
 
 def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     cfg.validate()
+    # ---- multi-host: host compute is replicated, the EXPENSIVE work
+    # (alignment, overlap candidates) is host-sharded, and only host 0
+    # writes the canonical artifacts
+    if cfg.mesh.debug_sharding:
+        from ..parallel import debug
+        debug.enable(True)
+    multi = dist.process_count() > 1
     out_root = cfg.out_dir
+    if multi and not dist.is_primary_host():
+        out_root = os.path.join(cfg.out_dir,
+                                f".host{dist.process_index()}")
+    sync = dist.sync_stage_done if multi else None
     out = os.path.join(out_root, "3-unzip")
     os.makedirs(out, exist_ok=True)
     metrics = MetricsLog(os.path.join(out_root, "metrics.jsonl"))
@@ -68,11 +84,17 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
 
     # ---- stage 0: draft contigs (given, or de novo from the pread graph)
     draft_stage = Stage(out, "0-draft", inputs=[cfg.preads, cfg.draft],
-                        outputs=["draft_p_ctg.fa"], resume=cfg.resume)
+                        outputs=["draft_p_ctg.fa"], resume=cfg.resume,
+                        sync=sync)
 
     overlaps_holder: dict = {}
 
-    def _compute_overlaps():
+    def _compute_overlaps(primary_only: bool = False):
+        """Host-sharded overlap compute.
+
+        primary_only (the hasm path): the merged OverlapSet is retained
+        on host 0 only — the string graph is host-0 work — so other
+        hosts return None.  Collective: every host must call."""
         if "ovl" not in overlaps_holder:
             ov_cfg = OverlapperConfig(
                 k=cfg.overlap.k, band=cfg.overlap.band,
@@ -80,7 +102,22 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
                 min_identity=cfg.overlap.min_identity,
                 end_fuzz=cfg.overlap.end_fuzz)
             overlapper = PreadOverlapper(preads, ov_cfg, device=dev)
-            overlaps_holder["ovl"] = overlapper.compute()
+            if multi:
+                # each host seeds/verifies the candidates of its a-read
+                # shard; the gathered union re-sorts to the identical
+                # overlap stream (OverlapSet.sort_canonical)
+                local = overlapper.compute(dist.host_shard(len(preads)))
+                if primary_only:
+                    got = dist.gather_to_primary(local.to_bytes())
+                    overlaps_holder["ovl"] = OverlapSet.merge(
+                        [OverlapSet.from_bytes(b) for b in got]) \
+                        if got is not None else None
+                else:
+                    overlaps_holder["ovl"] = OverlapSet.merge(
+                        [OverlapSet.from_bytes(b)
+                         for b in dist.allgather_bytes(local.to_bytes())])
+            else:
+                overlaps_holder["ovl"] = overlapper.compute()
             overlaps_holder["timings"] = overlapper.timings
         return overlaps_holder["ovl"]
 
@@ -107,45 +144,87 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     draft = read_fasta(draft_stage.out("draft_p_ctg.fa"))
     contigs = [draft.row(i) for i in range(len(draft))]
 
+    # ---- contig-owner partition: each host OWNS a length-balanced
+    # subset of contigs; post-alignment host work (phasing) runs only on
+    # the owner
+    n_hosts = dist.process_count()
+    owners = dist.contig_owners([len(c) for c in contigs], n_hosts)
+    my_host = dist.process_index()
+
     # ---- stage 1: track + align reads to draft (blasr/phasing prep role)
     # the alignment is computed lazily: a fully up-to-date resume reloads
     # everything downstream from stage outputs and never aligns
     _aln_cache: dict = {}
 
     def get_aln():
-        """The AlnSet, persisted next to the 1-align stage (written by
-        _track, reloaded here when the stage is up to date) so a partial
-        resume does not re-align."""
+        """Owned-contig AlnSet: host-sharded alignment, records routed to
+        each contig's owner host (multi); the full set on one host,
+        persisted next to the 1-align stage (written by _track, reloaded
+        here when the stage is up to date) so a partial resume does not
+        re-align."""
         if "a" not in _aln_cache:
-            blob = os.path.join(out, "1-align", "aln_set.msgpack")
-            probe = Stage(
-                out, "1-align",
-                inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
-                outputs=["read_to_contig_map.msgpack"],
-                resume=cfg.resume)
-            if cfg.resume and probe.is_done() and os.path.exists(blob):
-                _t0 = time.perf_counter()
-                with open(blob, "rb") as fh:
-                    _aln_cache["a"] = AlnSet.from_bytes(fh.read())
-                metrics.log("align_reload",
-                            s=round(time.perf_counter() - _t0, 2))
-                return _aln_cache["a"]
+            if not multi:
+                blob = os.path.join(out, "1-align", "aln_set.msgpack")
+                probe = Stage(
+                    out, "1-align",
+                    inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
+                    outputs=["read_to_contig_map.msgpack"],
+                    resume=cfg.resume)
+                if cfg.resume and probe.is_done() \
+                        and os.path.exists(blob):
+                    _t0 = time.perf_counter()
+                    with open(blob, "rb") as fh:
+                        _aln_cache["a"] = AlnSet.from_bytes(fh.read())
+                    metrics.log("align_reload",
+                                s=round(time.perf_counter() - _t0, 2))
+                    return _aln_cache["a"]
             _t0 = time.perf_counter()
             aligner = ReadToContigAligner(contigs, AlignerConfig(
                 k=cfg.align.k, band=cfg.align.band,
                 window_pad=cfg.align.window_pad,
                 min_identity=cfg.align.min_identity,
                 batch_pairs=cfg.align.batch_pairs), device=dev)
-            _aln_cache["a"] = aligner.align_batch(preads)
+            if multi:
+                # host-sharded alignment: each host seeds + DP-verifies
+                # its read shard, then routes each record to its
+                # contig's OWNER; the owner's canonical merge equals the
+                # one-host records of those contigs
+                local = aligner.align_batch(
+                    preads, read_range=dist.host_shard(len(preads)))
+                rec_owner = owners[local.ctg]
+                blobs = [local.subset(rec_owner == d).to_bytes()
+                         for d in range(n_hosts)]
+                _aln_cache["a"] = AlnSet.merge(
+                    [AlnSet.from_bytes(b)
+                     for b in dist.exchange_to_owners(blobs)])
+            else:
+                _aln_cache["a"] = aligner.align_batch(preads)
             metrics.log("align_compute",
                         s=round(time.perf_counter() - _t0, 2),
                         **aligner.timings)
         return _aln_cache["a"]
 
+    def _gather_track_cols():
+        """Global per-read placement columns from owner-sharded AlnSets
+        (small arrays: O(reads), no tags)."""
+        aln = get_aln()
+        cols = {"rid": aln.read_id, "ctg": aln.ctg, "ts": aln.t_start,
+                "te": aln.t_end, "st": aln.strand.astype(np.int32)}
+        if not multi:
+            return cols
+        parts = [dist.unpack_arrays(b)
+                 for b in dist.allgather_bytes(dist.pack_arrays(cols))]
+        merged = {k: np.concatenate([p[k] for p in parts])
+                  for k in cols}
+        order = np.argsort(merged["rid"], kind="stable")
+        return {k: v[order] for k, v in merged.items()}
+
     # ---- overlap prefetch: the hasm overlap compute depends only on the
-    # preads, so it runs concurrently with stages 1-2 in a dataflow
-    # thread; its kernels go to the same device, on that thread's
-    # current stream
+    # preads, so in single-host mode it runs concurrently with stages 1-2
+    # in a dataflow thread (its kernels go to the same device, on that
+    # thread's current stream).  Multi-host keeps it synchronous: the
+    # compute issues collectives, and two collective streams must not
+    # interleave differently across hosts.
     phased_path = os.path.join(out, "all_phased_reads")
     # the probe must declare the SAME outputs as the real 3-hasm stage,
     # or it can report done while the real stage will rerun
@@ -159,7 +238,7 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
         outputs=["../all_phased_reads"], resume=cfg.resume)
     ovl_prefetch = None
-    if (cfg.overlap.prefetch
+    if (not multi and cfg.overlap.prefetch
             and not (hasm_probe.is_done() and phasing_probe.is_done())):
         from ..parallel.dataflow import Prefetch
         ovl_prefetch = Prefetch("overlap-compute", _compute_overlaps)
@@ -167,22 +246,24 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     align_stage = Stage(out, "1-align",
                         inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
                         outputs=["read_to_contig_map.msgpack"],
-                        resume=cfg.resume)
+                        resume=cfg.resume, sync=sync)
 
     def _track(st: Stage):
-        aln = get_aln()
-        r2c = {int(aln.read_id[a]): [int(aln.ctg[a]), int(aln.t_start[a]),
-                                     int(aln.t_end[a]),
-                                     int(aln.strand[a])]
-               for a in range(len(aln))}
+        cols = _gather_track_cols()
+        r2c = {int(cols["rid"][a]): [int(cols["ctg"][a]),
+                                     int(cols["ts"][a]),
+                                     int(cols["te"][a]),
+                                     int(cols["st"][a])]
+               for a in range(len(cols["rid"]))}
         serialize(st.out("read_to_contig_map.msgpack"), r2c)
-        # durable AlnSet: partial resumes reload instead of re-aligning
-        # (see get_aln); written atomically so a kill mid-write cannot
-        # leave a truncated blob that loads
-        tmp = st.out("aln_set.msgpack.tmp")
-        with open(tmp, "wb") as fh:
-            fh.write(aln.to_bytes())
-        os.replace(tmp, st.out("aln_set.msgpack"))
+        if not multi:
+            # durable AlnSet: partial resumes reload instead of
+            # re-aligning (see get_aln); written atomically so a kill
+            # mid-write cannot leave a truncated blob that loads
+            tmp = st.out("aln_set.msgpack.tmp")
+            with open(tmp, "wb") as fh:
+                fh.write(get_aln().to_bytes())
+            os.replace(tmp, st.out("aln_set.msgpack"))
         metrics.log("align", n_aligned=len(r2c), n_reads=len(preads))
         return {"n_aligned": len(r2c)}
 
@@ -196,7 +277,7 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     phasing_stage = Stage(
         out, "2-phasing",
         inputs=[cfg.preads, draft_stage.out("draft_p_ctg.fa")],
-        outputs=["../all_phased_reads"], resume=cfg.resume)
+        outputs=["../all_phased_reads"], resume=cfg.resume, sync=sync)
 
     def _phase(st: Stage):
         ph_cfg = PhasingConfig(
@@ -205,13 +286,29 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
             allele_freq_min=cfg.phase.allele_freq_min,
             biallelic_frac=cfg.phase.biallelic_frac,
             max_span=cfg.phase.max_span, min_link=cfg.phase.min_link)
+        from ..parallel.sharding import ShardedPhaseOps, make_pipeline_mesh
+        # contig-owner dataflow: per-contig device work never crosses
+        # hosts, so the mesh is local in multi-host mode
+        mesh = make_pipeline_mesh(cfg.mesh.n_devices, cfg.mesh.window_par,
+                                  device=dev, local_only=multi)
+        if mesh is not None:
+            logger.info("phasing over mesh %s", mesh)
         aln = get_aln()
         _t0 = time.perf_counter()
-        my_ctgs = np.arange(len(contigs))
-        # grouped batched device ops: a few rounds for ALL contigs
-        phs = phase_contigs_batched(
-            aln, [int(c) for c in my_ctgs],
-            [len(contigs[int(c)]) for c in my_ctgs], ph_cfg, device=dev)
+        my_ctgs = (np.nonzero(owners == my_host)[0] if multi
+                   else np.arange(len(contigs)))
+        if mesh is None:
+            # grouped batched device ops: a few rounds for ALL contigs
+            phs = phase_contigs_batched(
+                aln, [int(c) for c in my_ctgs],
+                [len(contigs[int(c)]) for c in my_ctgs], ph_cfg,
+                device=dev)
+        else:
+            phase_ops = ShardedPhaseOps(mesh)
+            phs = [phase_contig_device(aln, int(ci),
+                                       len(contigs[int(ci)]), ph_cfg,
+                                       device=dev, phase_ops=phase_ops)
+                   for ci in my_ctgs]
         metrics.log("phasing_total",
                     s=round(time.perf_counter() - _t0, 2),
                     n_ctgs=len(my_ctgs))
@@ -222,6 +319,14 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
                         **phase_block_stats(ph.block_id, ph.het_pos))
         phased = np.concatenate(phase_rows) if phase_rows else \
             np.zeros((0, 4), np.int64)
+        if multi:
+            # gather the (small) per-contig tables from every owner and
+            # restore ascending-contig order (stable, so within-contig
+            # row order is each owner's deterministic table order)
+            parts = [dist.unpack_arrays(b)["t"] for b in
+                     dist.allgather_bytes(dist.pack_arrays({"t": phased}))]
+            phased = np.concatenate(parts)
+            phased = phased[np.argsort(phased[:, 1], kind="stable")]
         # first-contig-wins read assignment (a read maps to one contig;
         # keep the first)
         for rid, ctg, blk, phs in phased:
@@ -252,15 +357,21 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     # ---- stage 3: hasm — phase-filtered overlaps + graph + haplotigs
     hasm_stage = Stage(
         out, "3-hasm", inputs=[cfg.preads, phased_path],
-        outputs=hasm_outputs, resume=cfg.resume)
+        outputs=hasm_outputs, resume=cfg.resume, sync=sync)
 
     def _hasm(st: Stage):
+        # graph construction + haplotig extraction is HOST-0 work (the
+        # string graph is global); other hosts take part in the
+        # collective overlap compute, keep nothing, and wait at the
+        # final barrier
         _t0 = time.perf_counter()
         if ovl_prefetch is not None:
             ovl_prefetch.get()      # join the dataflow handle; re-raises
-        ovl = _compute_overlaps()
+        ovl = _compute_overlaps(primary_only=True)
         metrics.log("hasm_overlaps", s=round(time.perf_counter() - _t0, 2),
                     **overlaps_holder.get("timings", {}))
+        if multi and not dist.is_primary_host():
+            return {}
         keep = phase_filter_mask(ovl, read_ctg, read_block, read_phase,
                                  OvlpFilterConfig(
                                      min_overlap=cfg.overlap.min_overlap,
@@ -364,6 +475,8 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
     stats = hasm_stage.metrics()
     logger.info("unzip done: %s primary, %s haplotigs",
                 stats.get("p_ctg"), stats.get("h_ctg"))
+    if multi:   # canonical artifacts complete before any host reads them
+        dist.barrier("unzip-done")
     return {**stats, "out_dir": out}
 
 

@@ -18,7 +18,7 @@ REF = os.path.dirname(falcon_unzip_tpu.__file__)
 PORT = os.path.dirname(falcon_unzip_tpu_torch.__file__)
 
 MODULES = ["coords.py", "models/unzipper.py", "io/overlaps.py",
-           "models/dedup.py", "seq.py", "config.py", "io/fasta.py",
+           "models/dedup.py", "seq.py", "io/fasta.py",
            "io/serialize.py", "io/ingest.py", "io/gfa.py", "io/native.py",
            "oracle/__init__.py", "oracle/align.py", "oracle/phasing.py",
            "oracle/hmm.py", "oracle/consensus.py", "graph/__init__.py",
@@ -66,7 +66,17 @@ DEFS = {
     "pipeline/quiver.py": ["_phase_route_mask", "_emit"],
     "models/consensus.py": ["ConsensusConfig", "_bucket"],
     "utils/profiling.py": ["StageTimer"],
-    "parallel/distributed.py": ["pack_arrays", "unpack_arrays"],
+    "parallel/distributed.py": ["pack_arrays", "unpack_arrays",
+                                "contig_owners"],
+    "parallel/debug.py": ["enable", "enabled",
+                          "ShardingInvariantError", "check_equal"],
+    "parallel/sharding.py": ["_pad_to", "_bucket"],
+    # every definition but MeshCfg, whose comments name torch.distributed
+    # (its fields and defaults: test_mesh_config_fields_match)
+    "config.py": ["logger", "AlignCfg", "PhaseCfg", "OverlapCfg",
+                  "GraphCfg", "PolishCfg", "PipelineConfig", "_SECTIONS",
+                  "_LEGACY_IGNORED", "_coerce", "load_config",
+                  "_first_of_fofn"],
     "io/bamlite.py": [
         "BGZF_EOF", "_NIB2CODE", "_CODE2NIB", "CIGAR_OPS", "bgzf_decompress",
         "bgzf_compress", "BamRecord", "BamFile", "read_bam", "write_bam",
@@ -129,3 +139,12 @@ def test_native_source_is_byte_equal(rel):
             open(os.path.join(REF, rel), "rb") as b:
         assert a.read() == b.read()
 
+
+def test_mesh_config_fields_match():
+    import dataclasses
+
+    from falcon_unzip_tpu.config import MeshCfg as RefMeshCfg
+    from falcon_unzip_tpu_torch.config import MeshCfg
+    assert [(f.name, f.type, f.default) for f in dataclasses.fields(MeshCfg)] \
+        == [(f.name, f.type, f.default)
+            for f in dataclasses.fields(RefMeshCfg)]

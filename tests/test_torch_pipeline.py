@@ -176,14 +176,3 @@ def test_jax_resume_reloads_port_alnset(runs):
     got = _files(f"{d}/port")
     for rel in port_files:
         assert got[rel] == port_files[rel], rel
-
-
-def test_unported_options_raise(tmp_path):
-    cfg = _cfg(str(tmp_path), "out")
-    cfg.mesh.n_devices = 2
-    with pytest.raises(NotImplementedError):
-        run_unzip(cfg, device="cpu")
-    cfg = _cfg(str(tmp_path), "out")
-    cfg.mesh.multihost = True
-    with pytest.raises(NotImplementedError):
-        run_unzip(cfg, device="cpu")

@@ -292,11 +292,6 @@ def test_template_route_votes_match_jax():
 
 
 def test_unported_quiver_options_raise(tmp_path):
-    for field, value in (("n_devices", 2), ("multihost", True)):
-        cfg = _cfg(str(tmp_path), str(tmp_path / "out"))
-        setattr(cfg.mesh, field, value)
-        with pytest.raises(NotImplementedError):
-            port_quiver.run_quiver(cfg, device="cpu")
     with pytest.raises(FileNotFoundError):
         port_quiver.run_quiver(_cfg(str(tmp_path), str(tmp_path / "out")),
                                device="cpu")
