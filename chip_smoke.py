@@ -71,7 +71,13 @@ non-zero:
    trace's wavefront and traceback kernels as many as the launch counts,
    and the device's busy share (the union of the trace's kernel and
    memcpy intervals over its span) with the kernel and memcpy ms;
-10. parallel/ on the card, after 5c: (a) a mesh of 4 logical shards (2 x
+5d. phase 5's consensus against its simulated truth:
+   falcon_unzip_tpu_torch/scripts/e2e_bench.py's _truth_qv on cns_p and
+   cns_h, re-aligning on cuda and on the CPU (QV and breakdown equal),
+   then the qv_calibrate and qv_attrib twins on phase 5's directory on
+   cuda (qv_attrib's sample rows counted, not printed) and profile_align
+   at its default 300 kb on cuda;
+10. parallel/ on the card, after 5d: (a) a mesh of 4 logical shards (2 x
    2) on cuda:0 with the sharding debug checks on: ShardedPhaseOps'
    pileup and association at a 1 Mb contig's tag count (25 M tags;
    11,360 reads x 7,200 sites) bit-exact to the single-device ops,
@@ -978,13 +984,6 @@ def phase_cli(np, d) -> dict:
     return rows
 
 
-def _n50_lengths(genome_bp):
-    """scripts/e2e_bench.py::contig_lengths, profile n50."""
-    fr = [0.5, 0.2, 0.1, 0.065, 0.065, 0.07]
-    lens = [int(genome_bp * f) for f in fr[:-1]]
-    return lens + [genome_bp - sum(lens)]
-
-
 def _stats(lens) -> dict:
     lens = sorted(lens, reverse=True)
     total, acc, n50 = sum(lens), 0, 0
@@ -1010,51 +1009,25 @@ def _stage_rows(path, skip: int = 0, stop: int | None = None) -> dict:
     return stages
 
 
-def _timed_run(torch, d, cmd, kernels) -> tuple:
-    """One stage of the main path with the counts set to 0 just before it
-    and read just after; returns (wall s, launches, device ms, cells)."""
-    from falcon_unzip_tpu_torch.ops import _kernels
-    for k in _kernels.KERNELS:
-        k.timed = True
-    _kernels.reset_counts()
-    t0 = time.perf_counter()
-    _cli(d, cmd)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launches(kernels)
-    dev_ms = {k.name: k.elapsed_ms() for k in kernels}
-    cells = {k.name: k.cells for k in kernels}
-    for k in _kernels.KERNELS:
-        k.timed = False
-    return wall, launches, dev_ms, cells
-
-
-def _sim_contig(job):
-    """One contig of phase 5's genome: its diploid, 25x preads and 29x raw
-    reads, from its own seeds (run in a worker process)."""
-    ci, per = job
-    from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
-                                                       simulate_reads)
-    dip = make_diploid(length=per, het_rate=0.012, seed=100 + ci,
-                       het_span=(0.2, 0.8))
-    pr = simulate_reads(dip, coverage=25.0, read_len=2200, error_rate=0.0,
-                        seed=200 + ci)
-    rw = simulate_reads(dip, coverage=29.0, read_len=1800, error_rate=0.03,
-                        seed=300 + ci)
-    return dip, pr.batch, rw.batch
+def _timed_run(d, cmd, kernels) -> tuple:
+    """One stage of the main path through the e2e bench's timed_stage
+    (the counts set to 0 just before it and read just after); returns
+    (wall s, launches, device ms, cells) of `kernels`."""
+    from falcon_unzip_tpu_torch.scripts.e2e_bench import timed_stage
+    _, wall, *rows = timed_stage(lambda: _cli(d, cmd), True)
+    return (wall, *({k.name: row[k.name] for k in kernels} for row in rows))
 
 
 def phase_main(torch, tmp, genome_bp) -> dict:
-    import multiprocessing
     from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.scripts.e2e_bench import (contig_lengths,
+                                                          simulate)
     d = os.path.join(tmp, "main")
     os.makedirs(d)
     t0 = time.perf_counter()
     draft, preads, raw = [], [], []
-    # the contigs are simulated side by side (each from its own seeds)
-    jobs = list(enumerate(_n50_lengths(genome_bp)))
-    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
-        sims = pool.map(_sim_contig, jobs)
+    # the e2e bench's contigs at 25x, simulated side by side
+    sims = simulate(contig_lengths(genome_bp, "n50"), 25.0)
     for ci, (dip, pr, rw) in enumerate(sims):
         draft.append((f"draft{ci}", dip))
         preads.append((f"c{ci}/", pr))
@@ -1065,7 +1038,7 @@ def phase_main(torch, tmp, genome_bp) -> dict:
     sim_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
-    unzip_s, u_launch, u_ms, u_cells = _timed_run(torch, d, "unzip", align)
+    unzip_s, u_launch, u_ms, u_cells = _timed_run(d, "unzip", align)
     p_ctg = _stats(_fasta_lengths(f"{d}/out/3-unzip/all_p_ctg.fa"))
     h_ctg = _stats(_fasta_lengths(f"{d}/out/3-unzip/all_h_ctg.fa"))
     with open(f"{d}/out/3-unzip/all_phased_reads") as fh:
@@ -1082,7 +1055,7 @@ def phase_main(torch, tmp, genome_bp) -> dict:
           f"{rate:.2f} Gcell/s in the wavefront kernel | p_ctg {p_ctg} | "
           f"h_ctg {h_ctg} | phased reads {n_phased}", flush=True)
     quiver_s, q_launch, q_ms, q_cells = _timed_run(
-        torch, d, "quiver", align + (_kernels.ARROW,))
+        d, "quiver", align + (_kernels.ARROW,))
     peak = torch.cuda.max_memory_allocated()
     q_stages = _stage_rows(f"{d}/out/metrics.jsonl", n_rows)
     cns_p = _stats(_fasta_lengths(f"{d}/out/4-polish/cns_p_ctg.fasta"))
@@ -1110,7 +1083,54 @@ def phase_main(torch, tmp, genome_bp) -> dict:
         _fail(f"main quiver did not launch every kernel: {q_launch}")
     return {"launches": {**u_launch, "arrow_splice":
                          q_launch["arrow_splice"]}, "dir": d,
-            "unzip_s": unzip_s, "quiver_s": quiver_s}
+            "unzip_s": unzip_s, "quiver_s": quiver_s,
+            "haps": [h for _, dip in draft for h in (dip.hap0, dip.hap1)]}
+
+
+def phase_truth(main_run, genome_bp) -> None:
+    """Phase 5d: phase 5's consensus scored against its simulated truth
+    by the e2e bench's _truth_qv, re-aligning on the card and on the CPU
+    (QV and breakdown must be equal), then the QV calibration and
+    attribution twins on phase 5's directory on the card and the 1-align
+    profile at its default 300 kb."""
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.scripts import (e2e_bench, profile_align,
+                                                qv_attrib, qv_calibrate)
+    d, haps = main_run["dir"], main_run["haps"]
+    t_all = time.perf_counter()
+    for stem in ("cns_p_ctg", "cns_h_ctg"):
+        path = f"{d}/out/4-polish/{stem}.fasta"
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        card = e2e_bench._truth_qv(path, haps, device="cuda")
+        card_s = time.perf_counter() - t0
+        launches = _launches((_kernels.WAVEFRONT, _kernels.TRACEBACK))
+        t0 = time.perf_counter()
+        host = e2e_bench._truth_qv(path, haps, device="cpu")
+        host_s = time.perf_counter() - t0
+        if card != host:
+            _fail(f"truth QV of {stem}: card {card} != CPU {host}")
+        print(f"[5d truth] {stem}: truth QV {card[0]} | breakdown {card[1]} "
+              f"| card {card_s:.2f} s, launches {launches} | CPU "
+              f"{host_s:.2f} s, equal", flush=True)
+    argv = [str(genome_bp), "25", "n50", "--device", "cuda", "--scratch", d]
+    t0 = time.perf_counter()
+    qv_calibrate.main(argv)
+    cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        qv_attrib.main(argv)
+    att_s = time.perf_counter() - t0
+    att = json.loads(buf.getvalue().strip().splitlines()[-1])
+    att["sample"] = f"{len(att['sample'])} rows, not printed"
+    print(json.dumps(att), flush=True)
+    t0 = time.perf_counter()
+    profile_align.main(["--device", "cuda"])
+    prof_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_all
+    print(f"[5d truth] qv_calibrate {cal_s:.1f} s, qv_attrib {att_s:.1f} s, "
+          f"profile_align {prof_s:.1f} s | phase 5d {wall:.1f} s", flush=True)
 
 
 def _union_us(spans) -> float:
@@ -1663,30 +1683,26 @@ def phase_falcon_sense(torch) -> dict:
     template with the reads inside it, the card's consensus against the
     CPU's (the plain versions) byte for byte."""
     from falcon_unzip_tpu_torch.models import consensus as fs
-    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.scripts.e2e_bench import timed_stage
     from falcon_unzip_tpu_torch.utils.fixtures import (edit_identity,
                                                        template_reads)
     t0 = time.perf_counter()
     truth, template, reads, spans = template_reads(
         ECOLI_BP, 20 * ECOLI_BP // 10_000, seed=9)
     sim_s = time.perf_counter() - t0
-    align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
     spent: dict = {}
-    for k in align:
-        k.timed = True
+
+    def consensus():
+        with _clock(fs, ("seed_batch", "vote_matrix",
+                         "consensus_from_votes"), spent), \
+                _clock(fs.KmerIndex, ("build",), spent):
+            return fs.FalconSense(fs.ConsensusConfig(), "cuda")(template,
+                                                                 reads)
     torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_counts()
-    t0 = time.perf_counter()
-    with _clock(fs, ("seed_batch", "vote_matrix", "consensus_from_votes"),
-                spent), _clock(fs.KmerIndex, ("build",), spent):
-        cns = fs.FalconSense(fs.ConsensusConfig(), "cuda")(template, reads)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _launches(align)
-    dev_ms = {k.name: k.elapsed_ms() for k in align}
+    cns, wall, launches, dev_ms, _ = timed_stage(consensus, True)
+    launches, dev_ms = ({k: row[k] for k in ("banded_wavefront", "traceback")}
+                        for row in (launches, dev_ms))
     peak = torch.cuda.max_memory_allocated()
-    for k in align:
-        k.timed = False
     seed_s = spent["build"] + spent["seed_batch"]
     vote_s = spent["vote_matrix"] + spent["consensus_from_votes"]
     t0 = time.perf_counter()
@@ -1764,6 +1780,7 @@ def main(argv=None) -> int:
         phase_cli(np, golden_dir)
         main_run = phase_main(torch, tmp, args.genome_bp)
         phase_traced(torch, main_run["dir"])
+        phase_truth(main_run, args.genome_bp)
         phase_sharded_ops(torch, np)
         phase_two_ranks(torch, np, main_run)
     finally:

@@ -3,8 +3,9 @@
 The port carries copies of the reference's host code whose bodies are
 unchanged and whose imports point into the port.  With import statements
 stripped, each copied module or definition must equal its counterpart in
-``falcon_unzip_tpu`` line for line; the native IO library's Makefile and
-C++ sources are byte-equal.
+``falcon_unzip_tpu`` (or, for the port's script twins, in the repo's
+``scripts/``) line for line; the native IO library's Makefile and C++
+sources are byte-equal.
 """
 import ast
 import os
@@ -16,6 +17,7 @@ import falcon_unzip_tpu_torch
 
 REF = os.path.dirname(falcon_unzip_tpu.__file__)
 PORT = os.path.dirname(falcon_unzip_tpu_torch.__file__)
+REPO = os.path.dirname(REF)
 
 MODULES = ["coords.py", "models/unzipper.py", "io/overlaps.py",
            "models/dedup.py", "seq.py", "io/fasta.py",
@@ -86,6 +88,9 @@ DEFS = {
         "_cmd_select_reads", "_cmd_bam2m4"],
 }
 
+# definitions of the repo's scripts/ copied into the port's scripts/
+SCRIPT_DEFS = {"e2e_bench.py": ["contig_lengths", "_stage_metrics"]}
+
 
 def _names(node):
     if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -131,6 +136,13 @@ def test_copied_module_is_verbatim(rel):
 def test_copied_definition_is_verbatim(rel, name):
     assert (_text(os.path.join(PORT, rel), name)
             == _text(os.path.join(REF, rel), name))
+
+
+@pytest.mark.parametrize("rel,name", [(rel, nm) for rel, names in
+                                      SCRIPT_DEFS.items() for nm in names])
+def test_copied_script_definition_is_verbatim(rel, name):
+    assert (_text(os.path.join(PORT, "scripts", rel), name)
+            == _text(os.path.join(REPO, "scripts", rel), name))
 
 
 @pytest.mark.parametrize("rel", NATIVE)

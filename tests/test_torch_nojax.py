@@ -95,6 +95,12 @@ def test_no_jax_import_in_port_sources():
     assert not bad, bad
 
 
+def test_script_twins_are_scanned():
+    scanned = {os.path.relpath(p, PKG) for p in _sources()}
+    for name in ("e2e_bench", "qv_calibrate", "qv_attrib", "profile_align"):
+        assert os.path.join("scripts", f"{name}.py") in scanned
+
+
 def test_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
