@@ -95,6 +95,12 @@ non-zero:
    contig and column), a resume pass that skips every stage on both
    ranks, each rank's walls and launches beside phase 5's walls (the
    distributed layer's cost, not scaling);
+11. the scaling bench's phase step, after phase 10:
+   falcon_unzip_tpu_torch/scripts/scaling_bench.py's phase-step worker
+   over 1 and 2 gloo ranks sharing cuda:0 (8192 rows a rank, T = 64,
+   t_len 4096); rank 0's digest of the step's seven outputs equal to a
+   one-process make_phase_step's over the same rows on cuda:0 and on the
+   CPU; reads/s for each (ranks share one card: the layer's cost);
 5b. the per-base-quality hotspot polish of
    tests/test_qv_aware.py::test_polish_per_base_profile_qv on cuda (15 kb,
    20x reads of 2000 bp at 5% error, arrow_rounds 3), flat and with
@@ -1537,6 +1543,37 @@ def phase_two_ranks(torch, np, main_run) -> dict:
     return {"launches": launches, "ranks": ranks}
 
 
+def phase_scaling() -> dict:
+    """Phase 11: the scaling bench's phase step across 1 and 2 gloo ranks
+    sharing cuda:0 (8192 rows a rank, T = 64, t_len 4096); rank 0's
+    digest must equal a one-process step's over the same rows on cuda:0
+    and on the CPU.  Ranks sharing one card measure the layer's cost,
+    not scaling."""
+    from falcon_unzip_tpu_torch.parallel.mesh import make_mesh
+    from falcon_unzip_tpu_torch.scripts import scaling_bench as sb
+    res = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        got = sb.measure_multiprocess(n, 1, device="cuda", cards=1)
+        wall = time.perf_counter() - t0
+        R = sb.r_per_dev() * n
+        want = {}
+        for dev in ("cuda:0", "cpu"):
+            step, tagpos, tagbase = sb.run_phase_step(
+                make_mesh(1, 1, device=[dev]), R)
+            want[dev] = sb.phase_digest(step(tagpos, tagbase))
+        if not got["digest"] == want["cuda:0"] == want["cpu"]:
+            _fail(f"phase step over {n} ranks: digest {got['digest']} != "
+                  f"one process's {want}")
+        print(f"[11 scaling] phase step over {n} gloo rank(s) sharing "
+              f"cuda:0 (ranks share one card: the layer's cost), {R} rows"
+              f" | {got['reads_per_sec']:.1f} reads/s | digest "
+              f"{got['digest'][:16]} equal to one process's on cuda:0 and "
+              f"on the CPU | {wall:.1f} s with process start", flush=True)
+        res[n] = got
+    return res
+
+
 def phase_hotspot(torch, np) -> dict:
     """The per-base-quality hotspot polish of
     tests/test_qv_aware.py::test_polish_per_base_profile_qv on the card:
@@ -1783,6 +1820,7 @@ def main(argv=None) -> int:
         phase_truth(main_run, args.genome_bp)
         phase_sharded_ops(torch, np)
         phase_two_ranks(torch, np, main_run)
+        phase_scaling()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_hotspot(torch, np)

@@ -18,7 +18,6 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import multiprocessing
 import os
 import shutil
 import sys
@@ -58,6 +57,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from falcon_unzip_tpu_torch.config import load_config
     from falcon_unzip_tpu_torch.parallel import debug
+    from falcon_unzip_tpu_torch.scripts.e2e_bench import (contig_lengths,
+                                                          simulate)
     from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
     if torch.cuda.device_count() < args.cards or args.cards % 2:
         cs._fail(f"--cards {args.cards}: {torch.cuda.device_count()} cards "
@@ -68,9 +69,7 @@ def main(argv=None) -> int:
                          devices=[f"cuda:{i}" for i in range(args.cards)])
     tmp = tempfile.mkdtemp(prefix="mesh_cards_")
     try:
-        jobs = list(enumerate(cs._n50_lengths(1_000_000)))
-        with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
-            sims = pool.map(cs._sim_contig, jobs)
+        sims = simulate(contig_lengths(1_000_000, "n50"), 25.0)
         cs._write_inputs(tmp, [(f"draft{ci}", dip)
                                for ci, (dip, _, _) in enumerate(sims)],
                          [(f"c{ci}/", pr) for ci, (_, pr, _) in

@@ -223,3 +223,22 @@ def test_two_process_pipeline_byte_identical(tmp_path):
             if a.read() != b.read():
                 mismatches.append(rel)
     assert not mismatches, mismatches
+
+
+def test_mesh_cards_calls_only_smoke_helpers_that_exist():
+    """scripts/mesh_cards.py runs only on four cards and borrows
+    chip_smoke.py's helpers: each one it names must exist there."""
+    import ast
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    path = os.path.join(REPO, "falcon_unzip_tpu_torch", "scripts",
+                        "mesh_cards.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    used = {n.attr for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id == "cs"}
+    assert used, "mesh_cards no longer borrows from chip_smoke"
+    assert not sorted(u for u in used if not hasattr(chip_smoke, u))

@@ -97,7 +97,8 @@ def test_no_jax_import_in_port_sources():
 
 def test_script_twins_are_scanned():
     scanned = {os.path.relpath(p, PKG) for p in _sources()}
-    for name in ("e2e_bench", "qv_calibrate", "qv_attrib", "profile_align"):
+    for name in ("e2e_bench", "qv_calibrate", "qv_attrib", "profile_align",
+                 "scaling_bench"):
         assert os.path.join("scripts", f"{name}.py") in scanned
 
 
