@@ -43,6 +43,22 @@ non-zero:
    output, equal without the logaddexps and within 1e-5 relative with
    them; each set's time from the NEG and from a seeded start beside its
    SFU floor and the card's name and power limit;
+3e. band widths off the main path's: the wavefront and traceback (moves,
+   packed, summary) bit-exact to their plain versions at W = 2, 16, 33,
+   48, 96, 200, 384, 640, 768, 1024, 2048 and 4096 (the built layouts'
+   own widths and ragged ones, run on the narrowest wider layout), each
+   mode, P=64, query bucket 1024 (2048 at W = 4096, which is wider than
+   bucket 1024's guarded rows), each time beside its bound, and at W =
+   200 on phase 3's short and unalignable batches; the pair-HMM forward
+   at W = 16, 48, 96, 200, 384 and 1024, timed at P=256 on 512 bp
+   windows beside its bound and SFU floor and held on every edge batch
+   within 1e-3 relative, out-of-band pairs exactly NEG; the golden
+   fixture through the command line on cuda at [align] band 384 /
+   [overlap] band 200 and at [align] band 768 (the wavefront launched at
+   each configured width and at placement's max(512, band)), its 3-unzip
+   and cns fasta files byte-identical to the port's CPU run of the same
+   config (started in subprocesses at the phase's start) and its cns
+   fastq sequences equal, QVs within 1;
 4. golden fixture: 3-unzip and 4-polish on cuda through the port's
    command line must reproduce the five golden hashes of
    tests/test_golden.py, and cns_*.fastq must carry the sequences of a
@@ -160,13 +176,25 @@ def phase_card(torch) -> str:
 
 
 def phase_build() -> None:
+    """Build every CUDA source (ptxas -v): the seconds, the kernels
+    compiled, their registers and those that spill."""
+    import re
     from falcon_unzip_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
     _kernels._load()
-    ptxas = [ln.strip() for ln in _kernels.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2 build] {time.perf_counter() - t0:.2f} s | "
-          + " | ".join(ptxas), flush=True)
+    secs = time.perf_counter() - t0
+    entries = re.split(r"Compiling entry function '", _kernels.BUILD_LOG)[1:]
+    regs, spills = [], []
+    for e in entries:
+        used = re.search(r"Used (\d+) registers", e)
+        regs.append(int(used.group(1)) if used else 0)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       e)
+        if sp and sp.groups() != ("0", "0"):
+            spills.append(f"{e.split(chr(39))[0]} ({sp.group(0)})")
+    print(f"[2 build] {secs:.2f} s | {len(entries)} kernels compiled, "
+          f"{min(regs, default=0)}-{max(regs, default=0)} registers a "
+          f"thread | spills: {'; '.join(spills) or 'none'}", flush=True)
 
 
 def _pairs(rng, P, bq, mode):
@@ -237,12 +265,103 @@ def _unalignable_pairs(rng, P, bq, mode):
     return qs, ts
 
 
-def phase_parity_align(torch, np) -> dict:
+def _align_case(torch, np, W, mode, bq, qs, ts, tag, P) -> dict:
+    """The banded wavefront and traceback (moves, packed and summary
+    epilogues) on one batch of pairs in query bucket bq, against their
+    plain versions on the card, bit-exact (a difference fails); the times
+    of kernel and plain version and the work of both kernels."""
     from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     dev = torch.device("cuda")
+    bt = _t_bucket(max(len(x) for x in ts), bq)
+    q, n = _padded(np, qs, bq)
+    t, m = _padded(np, ts, bt)
+    # the schedule exactly as BandedAligner.dispatch cuts it
+    Dmax, lo = ba.build_schedule(bq, bt, W)
+    need = int((n + m).max()) + 1
+    Dmax = min(Dmax, -(-need // 1024) * 1024)
+    lo = lo[:Dmax]
+    qg, trg, G = ba.prepare_batch(q, t, W)
+    args = (torch.from_numpy(qg).to(dev),
+            torch.from_numpy(trg).to(dev),
+            torch.from_numpy(n).to(dev),
+            torch.from_numpy(m).to(dev), lo)
+    kw = dict(W=W, Lt=bt, G=G, mode=mode)
+    where = f"W={W} {mode} bq={bq}{tag}"
+    k = ba.banded_align_batch(*args, **kw)
+    t0 = time.perf_counter()
+    p = ba.banded_align_batch_plain(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    wf_err = max(int((k[key] - p[key]).abs().max())
+                 for key in ("dist", "end_i", "end_j"))
+    wf_err = max(wf_err, int((ba.unpack_bp(k["bp"], Dmax).int()
+                              - ba.unpack_bp(p["bp"], Dmax).int()
+                              ).abs().max()))
+    for key in ("dist", "end_i", "end_j", "bp"):
+        if not torch.equal(k[key], p[key]):
+            _fail(f"wavefront {key} differs at {where}")
+    steps = Dmax - 1
+    tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
+                            max_steps=steps)
+    t0 = time.perf_counter()
+    tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"], p["end_j"],
+                                  max_steps=steps)
+    torch.cuda.synchronize()
+    plain_tb_ms = 1e3 * (time.perf_counter() - t0)
+    tb_err = int((tk.int() - tp.int()).abs().max())
+    if not torch.equal(tk, tp):
+        _fail(f"traceback differs at {where}")
+    n_moves = int((tk != ba.MOVE_NONE).sum())
+    ends = (k["dist"], k["end_i"], k["end_j"])
+    epi_ms = {}
+    # the plain compositions, over the plain moves made just above
+    # (what traceback_packed_plain / traceback_summary_plain compute)
+    plain_ends = (p["dist"], p["end_i"], p["end_j"])
+    wants = {"packed": ba._combine_results(ba.pack_moves2(tp), *plain_ends),
+             "summary": ba._summarize_moves(tp, *plain_ends)}
+    for name, want in wants.items():
+        fused = getattr(ba, f"traceback_{name}")
+        got = fused(k["bp"], lo, *ends, max_steps=steps)
+        if not torch.equal(got, want):
+            _fail(f"traceback {name} epilogue differs at {where}")
+        epi_ms[name] = time_ms(lambda: fused(
+            k["bp"], lo, *ends, max_steps=steps), 3)
+    finite = int((k["dist"] < 1 << 20).sum())
+    if tag.endswith("short pairs") and 2 * int(np.sort(n + m)[-9]) >= Dmax:
+        _fail(f"the short pairs are not short: Dmax {Dmax}")
+    if tag.endswith("unalignable pairs") and finite:
+        _fail(f"{finite} of the unalignable pairs aligned")
+    wf_ms = time_ms(lambda: ba.banded_align_batch(*args, **kw), 3)
+    tb_ms = time_ms(lambda: ba.traceback_batch(
+        k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
+    return dict(bt=bt, Dmax=Dmax, finite=finite, n_moves=n_moves,
+                wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
+                tb_plain_ms=plain_tb_ms, epi_ms=epi_ms, wf_err=wf_err,
+                tb_err=tb_err,
+                wf_work=bench.wavefront_work(
+                    n, m, Dmax=Dmax, W=W, LQG=qg.shape[1], LTG=trg.shape[1]),
+                tb_work=bench.traceback_work(n_moves, P=P, max_steps=steps))
+
+
+def _align_line(W, mode, bq, tag, P, r) -> str:
+    """Phase 3's line of one batch: exactness and the kernels' times beside
+    their plain versions' and their bounds."""
+    from falcon_unzip_tpu_torch import bench
+    bounds = [bench.bound_ms(w["ops"], w["bytes"], w["peak"])[0]
+              for w in (r["wf_work"], r["tb_work"])]
+    return (f"W={W} {mode} bq={bq} bt={r['bt']} Dmax={r['Dmax']}{tag} P={P} "
+            f"finite={r['finite']}/{P} exact | wavefront {r['wf_ms']:.3f} ms"
+            f" (plain {r['wf_plain_ms']:.1f} ms, bound {bounds[0]:.4f} ms) |"
+            f" traceback {r['tb_ms']:.3f} ms (plain {r['tb_plain_ms']:.1f} "
+            f"ms, bound {bounds[1]:.5f} ms), packed "
+            f"{r['epi_ms']['packed']:.3f} ms, summary "
+            f"{r['epi_ms']['summary']:.3f} ms")
+
+
+def phase_parity_align(torch, np) -> dict:
     rng = np.random.default_rng(2024)
     shapes = {}
     cases = [(W, mode, bq, _pairs, "", 256)
@@ -260,96 +379,17 @@ def phase_parity_align(torch, np) -> dict:
               for bq in (8192, 16384)]
     for W, mode, bq, make, tag, P in cases:
         qs, ts = make(rng, P, bq, mode)
-        bt = _t_bucket(max(len(x) for x in ts), bq)
-        q, n = _padded(np, qs, bq)
-        t, m = _padded(np, ts, bt)
-        # the schedule exactly as BandedAligner.dispatch cuts it
-        Dmax, lo = ba.build_schedule(bq, bt, W)
-        need = int((n + m).max()) + 1
-        Dmax = min(Dmax, -(-need // 1024) * 1024)
-        lo = lo[:Dmax]
-        qg, trg, G = ba.prepare_batch(q, t, W)
-        args = (torch.from_numpy(qg).to(dev),
-                torch.from_numpy(trg).to(dev),
-                torch.from_numpy(n).to(dev),
-                torch.from_numpy(m).to(dev), lo)
-        kw = dict(W=W, Lt=bt, G=G, mode=mode)
-        k = ba.banded_align_batch(*args, **kw)
-        t0 = time.perf_counter()
-        p = ba.banded_align_batch_plain(*args, **kw)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
-        wf_err = max(int((k[key] - p[key]).abs().max())
-                     for key in ("dist", "end_i", "end_j"))
-        wf_err = max(wf_err, int((ba.unpack_bp(k["bp"], Dmax).int()
-                                  - ba.unpack_bp(p["bp"], Dmax).int()
-                                  ).abs().max()))
-        for key in ("dist", "end_i", "end_j", "bp"):
-            if not torch.equal(k[key], p[key]):
-                _fail(f"wavefront {key} differs at W={W} {mode} "
-                      f"bq={bq}{tag}")
-        steps = Dmax - 1
-        tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
-                                max_steps=steps)
-        t0 = time.perf_counter()
-        tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"],
-                                      p["end_j"], max_steps=steps)
-        torch.cuda.synchronize()
-        plain_tb_ms = 1e3 * (time.perf_counter() - t0)
-        tb_err = int((tk.int() - tp.int()).abs().max())
-        if not torch.equal(tk, tp):
-            _fail(f"traceback differs at W={W} {mode} bq={bq}{tag}")
-        n_moves = int((tk != ba.MOVE_NONE).sum())
-        ends = (k["dist"], k["end_i"], k["end_j"])
-        epi_ms = {}
-        # the plain compositions, over the plain moves made just above
-        # (what traceback_packed_plain / traceback_summary_plain compute)
-        plain_ends = (p["dist"], p["end_i"], p["end_j"])
-        wants = {"packed": ba._combine_results(ba.pack_moves2(tp),
-                                               *plain_ends),
-                 "summary": ba._summarize_moves(tp, *plain_ends)}
-        for name, want in wants.items():
-            fused = getattr(ba, f"traceback_{name}")
-            got = fused(k["bp"], lo, *ends, max_steps=steps)
-            if not torch.equal(got, want):
-                _fail(f"traceback {name} epilogue differs at W={W} "
-                      f"{mode} bq={bq}{tag}")
-            epi_ms[name] = time_ms(lambda: fused(
-                k["bp"], lo, *ends, max_steps=steps), 3)
-        finite = int((k["dist"] < 1 << 20).sum())
-        if tag == " short pairs" and \
-                2 * int(np.sort(n + m)[-9]) >= Dmax:
-            _fail(f"the short pairs are not short: Dmax {Dmax}")
-        if tag == " unalignable pairs" and finite:
-            _fail(f"{finite} of the unalignable pairs aligned")
-        wf_ms = time_ms(lambda: ba.banded_align_batch(
-            *args, **kw), 3)
-        tb_ms = time_ms(lambda: ba.traceback_batch(
-            k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
+        r = _align_case(torch, np, W, mode, bq, qs, ts, tag, P)
         if tag and tag != " FalconSense":
-            print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} "
-                  f"Dmax={Dmax}{tag}: finite={finite}/{P}, "
-                  f"{n_moves} moves exact | wavefront {wf_ms:.3f} "
-                  f"ms | traceback moves {tb_ms:.3f} ms, packed "
-                  f"{epi_ms['packed']:.3f} ms, summary "
-                  f"{epi_ms['summary']:.3f} ms", flush=True)
+            print(f"[3 parity] W={W} {mode} bq={bq} bt={r['bt']} "
+                  f"Dmax={r['Dmax']}{tag}: finite={r['finite']}/{P}, "
+                  f"{r['n_moves']} moves exact | wavefront {r['wf_ms']:.3f} "
+                  f"ms | traceback moves {r['tb_ms']:.3f} ms, packed "
+                  f"{r['epi_ms']['packed']:.3f} ms, summary "
+                  f"{r['epi_ms']['summary']:.3f} ms", flush=True)
             continue
-        res = shapes[(W, mode, bq) + ((P,) if tag else ())] = dict(
-            wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
-            tb_plain_ms=plain_tb_ms, wf_err=wf_err, tb_err=tb_err,
-            wf_work=bench.wavefront_work(
-                n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
-                LTG=trg.shape[1]),
-            tb_work=bench.traceback_work(n_moves, P=P,
-                                         max_steps=steps))
-        bounds = [bench.bound_ms(w["ops"], w["bytes"], w["peak"])[0]
-                  for w in (res["wf_work"], res["tb_work"])]
-        print(f"[3 parity] W={W} {mode} bq={bq} bt={bt} Dmax={Dmax}{tag}"
-              f" P={P} finite={finite}/{P} exact | wavefront {wf_ms:.3f} ms"
-              f" (plain {plain_ms:.1f} ms, bound {bounds[0]:.4f} ms) | "
-              f"traceback {tb_ms:.3f} ms (plain {plain_tb_ms:.1f} ms, bound "
-              f"{bounds[1]:.5f} ms), packed {epi_ms['packed']:.3f} ms, "
-              f"summary {epi_ms['summary']:.3f} ms", flush=True)
+        shapes[(W, mode, bq) + ((P,) if tag else ())] = r
+        print(f"[3 parity] {_align_line(W, mode, bq, tag, P, r)}", flush=True)
     return shapes
 
 
@@ -680,11 +720,12 @@ def _launches(kernels):
     return {k.name: k.launches for k in kernels}
 
 
-def phase_golden(tmp) -> str:
-    from falcon_unzip_tpu_torch.ops import _kernels
+def _golden_fixture(d, sections=None) -> None:
+    """The golden fixture's inputs and run.json in a new directory d (the
+    seeds of tests/test_golden.py), with the config sections given
+    ({section: {key: value}}) in run.json."""
     from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
                                                        simulate_reads)
-    d = os.path.join(tmp, "golden")
     os.makedirs(d)
     dip = make_diploid(length=6000, het_rate=0.02, seed=77,
                        het_span=(0.3, 0.7))
@@ -694,6 +735,18 @@ def phase_golden(tmp) -> str:
                          seed=79)
     # the golden draft is named d0 (tests/test_golden.py)
     _write_inputs(d, [("d0", dip)], [("", pr.batch)], [("", raw.batch)])
+    if sections:
+        with open(f"{d}/run.json") as fh:
+            run = json.load(fh)
+        run.update(sections)
+        with open(f"{d}/run.json", "w") as fh:
+            json.dump(run, fh)
+
+
+def phase_golden(tmp) -> str:
+    from falcon_unzip_tpu_torch.ops import _kernels
+    d = os.path.join(tmp, "golden")
+    _golden_fixture(d)
     align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
     _kernels.reset_counts()
     t0 = time.perf_counter()
@@ -745,10 +798,17 @@ def _fastq_vs_cpu(d) -> int:
         json.dump(run, fh)
     if cli_main(["quiver", f"{cpu}/run.json", "--device", "cpu"]) != 0:
         _fail("quiver on the CPU exited non-zero")
+    return _fastq_qv_diffs(f"{d}/out", f"{cpu}/out")
+
+
+def _fastq_qv_diffs(card_out, cpu_out) -> int:
+    """cns_*.fastq of a card run against a CPU run: the same sequences
+    and QVs within 1 (a difference fails).  Returns the number of QVs
+    that differ."""
     n_diff = 0
     for stem in ("cns_p_ctg", "cns_h_ctg"):
-        card = _fastq_records(f"{d}/out/4-polish/{stem}.fastq")
-        host = _fastq_records(f"{cpu}/out/4-polish/{stem}.fastq")
+        card = _fastq_records(f"{card_out}/4-polish/{stem}.fastq")
+        host = _fastq_records(f"{cpu_out}/4-polish/{stem}.fastq")
         if [r[0] for r in card] != [r[0] for r in host]:
             _fail(f"{stem}.fastq: card and CPU sequences differ")
         for (_, qa), (_, qb) in zip(card, host):
@@ -757,6 +817,197 @@ def _fastq_vs_cpu(d) -> int:
                 _fail(f"{stem}.fastq: a QV differs by {max(diff)}")
             n_diff += sum(1 for x in diff if x)
     return n_diff
+
+
+# Phase 3e: band widths off the main path's 128 / 256 / 512.  The
+# wavefront and traceback at built layouts' own widths and at ragged ones
+# (odd, under a warp, between layouts), which run on the narrowest wider
+# layout with the cells past W held out of the band; the pair-HMM forward
+# likewise; the golden fixture at two band configurations.
+WIDTHS = (2, 16, 33, 48, 96, 200, 384, 640, 768, 1024, 2048, 4096)
+HMM_WIDTHS = (16, 48, 96, 200, 384, 1024)
+BAND_CONFIGS = (("align384_overlap200",
+                 {"align": {"band": 384}, "overlap": {"band": 200}}),
+                ("align768", {"align": {"band": 768}}))
+# 3-unzip and 4-polish of the port on the CPU, run beside the card's checks
+# (one thread each: the plain versions checked on the card meanwhile are
+# bound by the host's launches)
+_CPU_RUN = """
+import sys
+import torch
+torch.set_num_threads(1)
+from falcon_unzip_tpu_torch.cli import main
+for cmd in ("unzip", "quiver"):
+    if main([cmd, sys.argv[1], "--device", "cpu"]) != 0:
+        sys.exit(f"{cmd} exited non-zero")
+"""
+
+
+def phase_widths(torch, np) -> dict:
+    """Phase 3e: the band kernels at widths the main path does not run,
+    each against its plain version on the card, and the golden fixture at
+    [align] band 384 / [overlap] band 200 and at [align] band 768 through
+    the command line on cuda against the port's CPU run of the same
+    config.  Returns each width's wavefront entry for the kernels line."""
+    from falcon_unzip_tpu_torch.scripts.common import time_ms
+    from falcon_unzip_tpu_torch import bench
+    from falcon_unzip_tpu_torch.ops import banded_align as ba
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.ops import pairhmm as ph
+    from falcon_unzip_tpu_torch.utils import hmm_batches as hb
+    from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_widths_")
+    procs = []
+    try:
+        # the CPU runs first, in processes of their own, while the card
+        # works through the kernels
+        for name, sections in BAND_CONFIGS:
+            for where in ("host", "card"):
+                _golden_fixture(f"{tmp}/{name}/{where}", sections)
+            d = f"{tmp}/{name}/host"
+            log = open(f"{d}/run.log", "w")
+            procs.append((name, log, subprocess.Popen(
+                [sys.executable, "-c", _CPU_RUN, f"{d}/run.json"], cwd=here,
+                stdout=log, stderr=subprocess.STDOUT)))
+        rng = np.random.default_rng(2026)
+        res = {"cases": {}}
+        for W in WIDTHS:
+            built = _kernels.layout_width("banded_wavefront", W)
+            # a 4096-wide band is wider than the guarded rows of bucket
+            # 1024 (prepare_batch's, in both packages): the next bucket
+            bq = 1024 if W <= 2048 else 2048
+            for mode in ("global", "qglocal", "tglocal"):
+                qs, ts = _pairs(rng, 64, bq, mode)
+                r = res["cases"][(W, mode)] = _align_case(
+                    torch, np, W, mode, bq, qs, ts, "", 64)
+                print(f"[3e widths] layout {built} | "
+                      f"{_align_line(W, mode, bq, '', 64, r)}", flush=True)
+        # a ragged width on phase 3's short and unalignable batches
+        for mode, make, tag in (
+                ("global", _short_pairs, " short pairs"),
+                ("tglocal", _short_pairs, " short pairs"),
+                ("qglocal", _unalignable_pairs, " unalignable pairs"),
+                ("tglocal", _unalignable_pairs, " unalignable pairs")):
+            qs, ts = make(rng, 256, 2048, mode)
+            r = res["cases"][(200, mode, tag)] = _align_case(
+                torch, np, 200, mode, 2048, qs, ts, tag, 256)
+            print(f"[3e widths] W=200 {mode} bq=2048 Dmax={r['Dmax']}{tag}: "
+                  f"finite={r['finite']}/256, {r['n_moves']} moves exact",
+                  flush=True)
+        # the pair-HMM forward: timed at the bench shape of phase 3 (P =
+        # 256, 512 bp windows), then on every edge batch
+        pvec = ph.params_vector()
+        P, WIN = 256, 512
+        q, n, t, m = _windows(np, rng, P, WIN, (400, 501))
+        worst = 0.0
+        for W in HMM_WIDTHS:
+            qg, trg, G = ba.prepare_batch(q, t, W)
+            Dmax, lo = ba.build_schedule(WIN, WIN, W)
+            args = (torch.from_numpy(qg).to("cuda"),
+                    torch.from_numpy(trg).to("cuda"),
+                    torch.from_numpy(n).to("cuda"),
+                    torch.from_numpy(m).to("cuda"), lo, pvec)
+            kw = dict(W=W, Lt=WIN, G=G)
+            k = ph.pairhmm_forward(*args, **kw)
+            t0 = time.perf_counter()
+            p = ph.pairhmm_forward_plain(*args, **kw)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            rel = hb.max_rel_err(k, p)
+            if not rel <= 1e-3 or not bool((k[p < -1e29] == -1e30).all()):
+                _fail(f"pairhmm W={W} P={P}: rel err {rel} over the bar, or "
+                      "an out-of-band pair not exactly NEG")
+            ms = time_ms(lambda: ph.pairhmm_forward(*args, **kw), 3)
+            work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
+                                      LTG=trg.shape[1])
+            bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
+            for kind in hb.EDGE_KINDS:
+                b = hb.edge_batch(kind, W)
+                a_e, kw_e = hb.to_device(b, W, pvec, "cuda")
+                k_e = ph.pairhmm_forward(*a_e, **kw_e)
+                p_e = ph.pairhmm_forward_plain(*a_e, **kw_e)
+                rel_e = hb.max_rel_err(k_e, p_e)
+                if not rel_e <= 1e-3 or \
+                        not bool((k_e[p_e < -1e29] == -1e30).all()):
+                    _fail(f"pairhmm edge batch {kind} W={W}: rel err {rel_e} "
+                          "over the bar, or an out-of-band pair not exactly "
+                          "NEG")
+                worst = max(worst, rel_e)
+            print(f"[3e widths] pairhmm_forward W={W} layout "
+                  f"{_kernels.layout_width('pairhmm_forward', W)} "
+                  f"({_kernels.pairhmm_cells(W, P)} cells a lane) P={P} "
+                  f"win={WIN} | max rel err {rel:.3g}, edge batches "
+                  f"{len(hb.EDGE_KINDS)} kinds within the bar | kernel "
+                  f"{ms:.3f} ms (plain {plain_ms:.1f} ms) | bound "
+                  f"{bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
+                  flush=True)
+        print(f"[3e widths] pairhmm_forward edge batches at W = "
+              f"{'/'.join(map(str, HMM_WIDTHS))}: max rel err {worst:.3g} "
+              "(bar 1e-3), out-of-band pairs exactly NEG", flush=True)
+        # the golden fixture at each band configuration on cuda, the band
+        # widths of its wavefront launches recorded
+        seen_w = set()
+        launch = _kernels.banded_wavefront
+
+        def spy_wavefront(*a, **kw):
+            seen_w.add(kw["W"])
+            return launch(*a, **kw)
+        for name, sections in BAND_CONFIGS:
+            d = f"{tmp}/{name}/card"
+            seen_w.clear()
+            _kernels.banded_wavefront = spy_wavefront
+            try:
+                _kernels.reset_counts()
+                t0 = time.perf_counter()
+                _cli(d, "unzip")
+                _cli(d, "quiver")
+                card_s = time.perf_counter() - t0
+            finally:
+                _kernels.banded_wavefront = launch
+            launches = _launches((_kernels.WAVEFRONT, _kernels.TRACEBACK))
+            want_w = {sections["align"]["band"],
+                      sections.get("overlap", {}).get("band", 256),
+                      max(512, sections["align"]["band"])}
+            if not want_w <= seen_w or min(launches.values()) <= 0:
+                _fail(f"golden {name}: wavefront widths {sorted(seen_w)}, "
+                      f"want {sorted(want_w)}; launches {launches}")
+            res[name] = {"card_s": card_s, "widths": sorted(seen_w),
+                         "launches": launches}
+        for name, log, proc in procs:
+            rc = proc.wait()
+            log.close()
+            d = f"{tmp}/{name}"
+            if rc != 0:
+                with open(f"{d}/host/run.log") as fh:
+                    tail = fh.read()[-2000:]
+                _fail(f"golden {name}: the CPU run exited {rc}\n{tail}")
+            card = run_artifacts(f"{d}/card/out", ("3-unzip/**/*",
+                                                   "4-polish/cns_*.fasta"))
+            host = run_artifacts(f"{d}/host/out", ("3-unzip/**/*",
+                                                  "4-polish/cns_*.fasta"))
+            if card != host:
+                diff = sorted(k for k in set(card) | set(host)
+                              if card.get(k) != host.get(k))
+                _fail(f"golden {name}: card and CPU differ in {diff}")
+            n_qv = _fastq_qv_diffs(f"{d}/card/out", f"{d}/host/out")
+            r = res[name]
+            print(f"[3e widths] golden {name} on cuda in {r['card_s']:.1f} s:"
+                  f" wavefront widths {r['widths']}, launches "
+                  f"{r['launches']} | {len(card)} 3-unzip and cns fasta files"
+                  f" byte-identical to the CPU run, cns fastq sequences "
+                  f"equal, {n_qv} QVs differ (by at most 1)", flush=True)
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[3e widths] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return res
 
 
 class _PlainScorer:
@@ -1780,16 +2031,30 @@ def phase_falcon_sense(torch) -> dict:
     return {"launches": launches, "ms": dev_ms, "identity": ident}
 
 
-def _entry(name, source, replaces, launches, err, ms, plain_ms, work):
-    """One kernel of the kernels line; its bound from this run's work."""
+def _entry(name, source, replaces, launches, err, ms, plain_ms, work,
+           **builds):
+    """One kernel of the kernels line; its bound from this run's work;
+    builds: the band widths it takes and the layouts built for them."""
     from falcon_unzip_tpu_torch import bench
     bound, by = bench.bound_ms(work["ops"], work["bytes"], work["peak"])
     entry = {"name": name, "route": "cuda",
              "source": "falcon_unzip_tpu_torch/csrc/" + source,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": by, "library_ms": None}
+             "bound_by": by, "library_ms": None, **builds}
     return entry
+
+
+def _band_builds(kernel) -> dict:
+    """The band widths a band kernel takes on the card and the layout
+    widths built for them (the traceback takes W at run time)."""
+    from falcon_unzip_tpu_torch.ops import _kernels
+    widths = f"1..{_kernels.MAX_W}"
+    if kernel == "traceback":
+        return {"widths": widths, "layouts": None}
+    return {"widths": widths, "layouts": sorted(
+        {_kernels.layout_width(kernel, W)
+         for W in range(1, _kernels.MAX_W + 1)})}
 
 
 def main(argv=None) -> int:
@@ -1810,6 +2075,7 @@ def main(argv=None) -> int:
     phase_parity_hmm(torch, np)
     arrow = phase_parity_arrow(torch, np)
     ablate = phase_parity_ablate(torch, smi)
+    widths = phase_widths(torch, np)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         golden_dir = phase_golden(tmp)
@@ -1835,17 +2101,22 @@ def main(argv=None) -> int:
         _entry("banded_wavefront", "banded_align.cu",
                "falcon_unzip_tpu/ops/pallas_align.py:41",
                main_run["launches"]["banded_wavefront"],
-               max(v["wf_err"] for v in shapes.values()), at["wf_ms"],
-               at["wf_plain_ms"], at["wf_work"]),
+               max(v["wf_err"] for v in (*shapes.values(),
+                                          *widths["cases"].values())),
+               at["wf_ms"], at["wf_plain_ms"], at["wf_work"],
+               **_band_builds("banded_wavefront")),
         _entry("traceback", "banded_align.cu",
                "falcon_unzip_tpu/ops/banded_align.py:180",
                main_run["launches"]["traceback"],
-               max(v["tb_err"] for v in shapes.values()), at["tb_ms"],
-               at["tb_plain_ms"], at["tb_work"]),
+               max(v["tb_err"] for v in (*shapes.values(),
+                                          *widths["cases"].values())),
+               at["tb_ms"], at["tb_plain_ms"], at["tb_work"],
+               **_band_builds("traceback")),
         _entry("pairhmm_forward", "pairhmm.cu",
                "falcon_unzip_tpu/ops/pallas_pairhmm.py:41",
                reforward["launches"], reforward["err"], reforward["ms"],
-               reforward["plain_ms"], reforward["work"]),
+               reforward["plain_ms"], reforward["work"],
+               **_band_builds("pairhmm_forward")),
         _entry("arrow_splice", "arrow_splice.cu",
                "falcon_unzip_tpu/ops/arrow.py:88",
                main_run["launches"]["arrow_splice"],

@@ -19,6 +19,7 @@
 //   on its shuffle and barrier.
 //
 //   Layout: one block per pair, NW warps of 32 lanes, C = W / (32 NW)
+//   (the layout's width: see the ragged builds below)
 //   neighbouring band cells a lane, the antidiagonals d-1 and d-2 in
 //   registers.  A 256-pair launch is 256 blocks of 4 warps (from W = 128
 //   on; a lane a cell below), two warps a scheduler (the earlier kernel's 64 blocks of 4 pairs left
@@ -45,6 +46,24 @@
 //     on the cell index.
 //   * The loop stops at the pair's corner d = n + m; the packed moves
 //     past it are MOVE_NONE and are stored without being computed.
+//   * Any band width W from 1 to 4096, as the JAX package runs any W
+//     (Pallas at W % 128 == 0, its scan otherwise).  14 layouts are built
+//     (fu_wavefront_layout_width): 32, 64, 128 to 1024 by 128, 1536, 2048,
+//     3072, 4096.  A W that is no layout's width runs on the narrowest
+//     wider one in its ragged build, which takes W at run time: the cells
+//     w >= W are held at INF on every step (the TPU kernel's edge rule: a
+//     read past the band's top is INF), stay out of the row-n minimum,
+//     are never stored (bp keeps its stride W), and their lanes' base
+//     reads are clamped into the rows (which are sized for W).  lo(d)
+//     depends on W / 2 only, so an odd W has the schedule of W - 1 with
+//     one cell more on top; the steady rows' shifts and masks need no
+//     change (at d = W, the one antidiagonal where an odd band's top cell
+//     has j = 0, lo is still 0 at the row's start: a general row).  A
+//     warp holding cells past W runs the unmasked rows with those cells
+//     set to INF (one select a cell): with the masked rows instead W =
+//     924 on the 1024 layout took 2.559 ms against the full band's 1.782
+//     (1.44x), with the select 2.109 against 1.785 (1.18x; P=256,
+//     tglocal, bq=2048; scripts/tune_banded.py --layouts).
 //
 //   Measured on an NVIDIA H100 80GB HBM3 at 700 W, W=256 tglocal, P=256,
 //   bq=2048, Dmax 4609 (scripts/tune_banded.py; the runs are in PERF.md):
@@ -60,6 +79,13 @@
 //   trading them once a row (0.59 ms at 4 warps with the same masked rows:
 //   half as many operations again, and the schedulers are already
 //   int32-bound).
+//
+//   Wide layouts (P=256, tglocal, bq=2048, Dmax 4609, the same card;
+//   scripts/tune_banded.py --layouts, two calls): 768 6x4 1.127 against
+//   3x8 1.124 ms (cells a lane x warps); 1024 8x4 1.836 / 1.794 against
+//   4x8 1.559 / 1.532; 1536 6x8 2.754 / 2.751 against 3x16 3.300; 2048
+//   8x8 4.579 / 4.577, 4x16 4.439 / 4.441, 2x32 5.117; 3072 6x16 7.850
+//   against 3x32 8.574; 4096 8x16 10.163 against 4x32 10.945.
 //
 // Kernel 2, traceback, replaces the lax.scan traceback_batch of
 // falcon_unzip_tpu/ops/banded_align.py (an XLA loop, not Pallas) and the
@@ -90,6 +116,12 @@
 //   _combine_results(pack_moves2) written directly; or the (P, 7) int32
 //   summary of _summarize_moves accumulated during the walk with no move
 //   written.
+//
+//   It takes W at run time: any W from 1 to 4096.  Below W = 32 (the
+//   NARROW build) a row has fewer words than a lane count, so lanes past
+//   W load nothing; at W < 64 the 64-word window holds the whole row.  A
+//   load guard in the one build for every W cost 3-5.5% at W = 128-512,
+//   hence the two builds.
 //
 //   Measured at the same shape and card: moves 0.16, packed 0.15, summary
 //   0.15 ms, against 0.98 ms for the thread-a-pair kernel plus 0.22-0.36
@@ -177,19 +209,36 @@ __device__ __forceinline__ void store_words(uint32_t* dst,
   }
 }
 
-// C cells a lane, NW warps a pair: W = 32 C NW.
-template <int C, int NW>
+// the words of the lane's cells inside the band (`left` = W - g0 of them
+// or more), one at a time: bp's rows are W words, so no vector alignment
+template <int C>
+__device__ __forceinline__ void store_words_ragged(uint32_t* dst,
+                                                   const uint32_t (&w)[C],
+                                                   uint32_t fill, int left) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c < left) dst[c] = w[c] | fill;
+}
+
+// C cells a lane, NW warps a pair: the layout's width is 32 C NW.  The
+// band is that wide, or with RAGGED W_run <= 32 C NW wide: then the cells
+// w >= W are held at INF on every step (a read past the band's top is INF,
+// as in the TPU kernel), never stored, out of the row-n minimum and the
+// end-cell search, and their lanes' base reads are clamped into the rows.
+template <int C, int NW, bool RAGGED>
 __global__ void __launch_bounds__(32 * NW)
 banded_wavefront_kernel(const int8_t* __restrict__ qg,
                         const int8_t* __restrict__ trg,
                         const int32_t* __restrict__ n_arr,
                         const int32_t* __restrict__ m_arr,
                         int P, int LQG, int LTG, int Lt, int G, int Dmax,
-                        int mode, int staged, uint32_t* __restrict__ bp,
+                        int W_run, int mode, int staged,
+                        uint32_t* __restrict__ bp,
                         int32_t* __restrict__ dist,
                         int32_t* __restrict__ end_i,
                         int32_t* __restrict__ end_j) {
-  constexpr int W = 32 * C * NW;
+  constexpr int WP = 32 * C * NW;
+  const int W = RAGGED ? W_run : WP;
   constexpr int T = 32 * NW;
   extern __shared__ uint4 smem4[];
   // the one cell a neighbour warp needs at the next step, by step parity
@@ -219,6 +268,15 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
     qrow = sq;
     trow = st;
   }
+  // a base of either row (a ragged build's lanes past the band clamped)
+  auto q_code = [&](int idx) {
+    if (RAGGED) idx = min(idx, LQG - 1);
+    return base_code(qrow, idx, 0xff);
+  };
+  auto t_code = [&](int idx) {
+    if (RAGGED) idx = min(max(idx, 0), LTG - 1);
+    return base_code(trow, idx, 0xfe);
+  };
   if (tid < 2 * NW) (&s_edge[0][0])[tid] = kInf;
   if (tid == 0) s_final = kInf;
   __syncthreads();
@@ -236,8 +294,8 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
     V1[c] = kInf;
     V2[c] = kInf;
     pack[c] = 0u;
-    qb[c] = base_code(qrow, g0 + c, 0xff);
-    tb[c] = base_code(trow, t_top + g0 + c, 0xfe);
+    qb[c] = q_code(g0 + c);
+    tb[c] = t_code(t_top + g0 + c);
   }
   int v2_edge = kInf;  // V(d-2) of the cell before this warp's first
   int best = kInf;     // thread-local first strict minimum on row i == n
@@ -273,14 +331,14 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
       for (int c = 0; c + 1 < C; ++c) qb[c] = qb[c + 1];
       int idx = lo_next + g0 + C - 1;
       if (CLAMP) idx = min(idx, LQG - 1);
-      qb[C - 1] = base_code(qrow, idx, 0xff);
+      qb[C - 1] = q_code(idx);
       if (NW > 1 && lane == 0) s_edge[d & 1][warp] = V[0];
     } else {
 #pragma unroll
       for (int c = C - 1; c > 0; --c) tb[c] = tb[c - 1];
       int idx = t_top - (d + 1) + lo_next + g0;
       if (CLAMP) idx = max(idx, 0);
-      tb[0] = base_code(trow, idx, 0xfe);
+      tb[0] = t_code(idx);
       if (NW > 1 && lane == 31) s_edge[d & 1][warp] = V[C - 1];
     }
     if (NW > 1) block_barrier();
@@ -304,14 +362,18 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
     // i <= n and j <= m are v_lo <= g <= v_hi, the others INF and
     // MOVE_NONE, and row n's cell feeds the minimum.  A valid cell is
     // finite (its diagonal predecessor is valid and in the band), so
-    // neither needs the INF clamp.
-    auto steady_row = [&](auto masked_tag) {
+    // neither needs the INF clamp.  CUT (a ragged build's warp that holds
+    // cells past W, otherwise unmasked): those cells are set to INF, one
+    // select each, and their moves are never stored.
+    auto steady_row = [&](auto masked_tag, auto cut_tag) {
       constexpr bool MASKED = decltype(masked_tag)::value;
+      constexpr bool CUT = decltype(cut_tag)::value;
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const int nb = neighbour(k & 1, d0 + k);
         const int lo_k = lo_a + (k + 1) / 2;
         const int g_n = n - lo_k;        // row n's cell
+        const int g_hi = RAGGED ? min(g_n, W - 1) : g_n;
         const int v_lo = d0 + k - lo_k - m;
         int V[C];
 #pragma unroll
@@ -330,7 +392,7 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
           int v = min(min(cd, cu), cl);
           uint32_t mv = cd <= v ? kMoveDiag : (cu <= v ? kMoveUp : kMoveLeft);
           if (MASKED) {
-            const bool valid = g0 + c >= v_lo && g0 + c <= g_n;
+            const bool valid = g0 + c >= v_lo && g0 + c <= g_hi;
             v = valid ? v : kInf;
             mv = valid ? mv : kMoveNone;
             if (g0 + c == g_n && v < best) {
@@ -338,6 +400,7 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
               best_d = d0 + k;
             }
           }
+          if (CUT) v = c < W - g0 ? v : kInf;
           pack[c] |= mv << (2 * k);
           V[c] = v;
         }
@@ -347,12 +410,21 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
     };
     if (d0 + 15 < d_end && lo_a >= 1) {
       // the pair's corner is not on this row.  Unmasked if every cell of
-      // this warp has i < n and j <= m on all 16 antidiagonals (each test
-      // is monotone in d: its far end decides).
-      if (wb < n - lo_b && wa >= d0 + 15 - lo_b - m)
-        steady_row(std::false_type{});
-      else
-        steady_row(std::true_type{});
+      // this warp in the band has i < n and j <= m on all 16 antidiagonals
+      // (each test is monotone in d: its far end decides).
+      const int w_top = RAGGED ? min(wb, W - 1) : wb;
+      if (w_top < n - lo_b && wa >= d0 + 15 - lo_b - m) {
+        if constexpr (RAGGED) {
+          if (wb < W)
+            steady_row(std::false_type{}, std::false_type{});
+          else
+            steady_row(std::false_type{}, std::true_type{});
+        } else {
+          steady_row(std::false_type{}, std::false_type{});
+        }
+      } else {
+        steady_row(std::true_type{}, std::false_type{});
+      }
     } else {
       // the general steps (the first W antidiagonals, where lo == 0, and
       // the pair's last row): any d, any mask, as thresholds on the cell
@@ -373,7 +445,8 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
         const int i_lo = 1 - lo;         // i >= 1  <=>  g >= i_lo
         const int j_hi = dl - 1;         // j >= 1  <=>  g <= j_hi
         const int v_lo = dl - m;         // valid  <=>  v_lo <= g <= v_hi
-        const int v_hi = min(n - lo, dl);
+        const int v_hi =
+            RAGGED ? min(min(n - lo, dl), W - 1) : min(n - lo, dl);
         // the origin: i == 0 (g == 0 while lo == 0), any j in tglocal,
         // j == 0 otherwise
         const int g_org =
@@ -429,7 +502,10 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
       uint32_t fill = 0u;
       if (d1 == d_end)
         fill = low_bits(min(16, Dmax - d0)) & ~low_bits((d1 & 15) + 1);
-      store_words<C>(bp_p + r * bp_row, pack, fill);
+      if (RAGGED)
+        store_words_ragged<C>(bp_p + r * bp_row, pack, fill, W - g0);
+      else
+        store_words<C>(bp_p + r * bp_row, pack, fill);
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) pack[c] = 0u;
@@ -438,9 +514,13 @@ banded_wavefront_kernel(const int8_t* __restrict__ qg,
   // block rows past the pair's corner: all MOVE_NONE
   if (bp_p != nullptr) {
     const int rows = (Dmax + 15) >> 4;
-    for (int r = rows_run; r < rows; ++r)
-      store_words<C>(bp_p + r * bp_row, pack,
-                     low_bits(min(16, Dmax - 16 * r)));
+    for (int r = rows_run; r < rows; ++r) {
+      const uint32_t fill = low_bits(min(16, Dmax - 16 * r));
+      if (RAGGED)
+        store_words_ragged<C>(bp_p + r * bp_row, pack, fill, W - g0);
+      else
+        store_words<C>(bp_p + r * bp_row, pack, fill);
+    }
   }
 
   // first antidiagonal with the strictly smallest V on row i == n:
@@ -511,7 +591,9 @@ __device__ __forceinline__ void flush_moves(uint8_t* dst, uint32_t mine,
   }
 }
 
-template <int EPI>
+// NARROW: a band narrower than a warp (W < 32), whose rows have fewer
+// words than the window's first load reads: those lanes load nothing.
+template <int EPI, bool NARROW>
 __global__ void __launch_bounds__(32)
 traceback_kernel(const uint32_t* __restrict__ bp, int P, int W, int Dmax,
                  const int32_t* __restrict__ end_i,
@@ -624,7 +706,7 @@ traceback_kernel(const uint32_t* __restrict__ bp, int P, int W, int Dmax,
         wb_cur = wb_nxt;
       } else {
         const uint32_t* src = bp_p + r * row + base;
-        c0 = __ldg(src + lane);
+        c0 = !NARROW || lane < W ? __ldg(src + lane) : 0u;
         c1 = base + 32 + lane < W ? __ldg(src + 32 + lane) : 0u;
         wb_cur = base;
       }
@@ -633,7 +715,7 @@ traceback_kernel(const uint32_t* __restrict__ bp, int P, int W, int Dmax,
       wb_nxt = base;
       if (r_nxt >= 0) {
         const uint32_t* src = bp_p + r_nxt * row + base;
-        n0 = __ldg(src + lane);
+        n0 = !NARROW || lane < W ? __ldg(src + lane) : 0u;
         n1 = base + 32 + lane < W ? __ldg(src + 32 + lane) : 0u;
       }
     }
@@ -699,12 +781,12 @@ traceback_kernel(const uint32_t* __restrict__ bp, int P, int W, int Dmax,
         c1 = n1;
         wb_cur = wb_nxt;
         r_cur = rr;
-        r_nxt = rr - 1;                  // >= 0: r_steady >= 2
+        r_nxt = rr - 1;                  // >= 0: rr >= r_steady >= 1
         int base = w - 40;
         base = base < 0 ? 0 : (base > wb_max ? wb_max : base);
         wb_nxt = base;
         const uint32_t* src = bp_p + r_nxt * row + base;
-        n0 = __ldg(src + lane);
+        n0 = !NARROW || lane < W ? __ldg(src + lane) : 0u;
         n1 = base + 32 + lane < W ? __ldg(src + 32 + lane) : 0u;
       }
       continue;  // stopped, or on with the general step (which clips w)
@@ -751,14 +833,14 @@ traceback_kernel(const uint32_t* __restrict__ bp, int P, int W, int Dmax,
   }
 }
 
-template <int C, int NW>
+template <int C, int NW, bool RAGGED>
 cudaError_t launch_wavefront(const int8_t* qg, const int8_t* trg,
                              const int32_t* n, const int32_t* m, int P,
-                             int LQG, int LTG, int Lt, int G, int Dmax,
+                             int LQG, int LTG, int Lt, int G, int Dmax, int W,
                              int mode, uint32_t* bp, int32_t* dist,
                              int32_t* end_i, int32_t* end_j,
                              cudaStream_t stream) {
-  auto kernel = banded_wavefront_kernel<C, NW>;
+  auto kernel = banded_wavefront_kernel<C, NW, RAGGED>;
   size_t smem = static_cast<size_t>((LQG + 15) & ~15) +
                 static_cast<size_t>((LTG + 15) & ~15);
   const int staged = smem <= static_cast<size_t>(kStageLimit) ? 1 : 0;
@@ -770,44 +852,139 @@ cudaError_t launch_wavefront(const int8_t* qg, const int8_t* trg,
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(P), dim3(32 * NW), smem, stream>>>(
-      qg, trg, n, m, P, LQG, LTG, Lt, G, Dmax, mode, staged, bp, dist, end_i,
-      end_j);
+      qg, trg, n, m, P, LQG, LTG, Lt, G, Dmax, W, mode, staged, bp, dist,
+      end_i, end_j);
   return cudaGetLastError();
+}
+
+struct WavefrontArgs {
+  const int8_t* qg;
+  const int8_t* trg;
+  const int32_t* n;
+  const int32_t* m;
+  int P, LQG, LTG, Lt, G, Dmax, W, mode;
+  uint32_t* bp;
+  int32_t* dist;
+  int32_t* end_i;
+  int32_t* end_j;
+  cudaStream_t stream;
+};
+
+template <int C, int NW, bool RAGGED>
+cudaError_t launch_args(const WavefrontArgs& a) {
+  return launch_wavefront<C, NW, RAGGED>(a.qg, a.trg, a.n, a.m, a.P, a.LQG,
+                                         a.LTG, a.Lt, a.G, a.Dmax, a.W,
+                                         a.mode, a.bp, a.dist, a.end_i,
+                                         a.end_j, a.stream);
+}
+
+// the layout (C, NW) exactly W wide
+template <int C, int NW>
+cudaError_t launch_exact(const WavefrontArgs& a) {
+  if (a.W != 32 * C * NW) return cudaErrorInvalidValue;
+  return launch_args<C, NW, false>(a);
+}
+
+// the layout (C, NW) exactly W wide, or its ragged build for a narrower band
+template <int C, int NW>
+cudaError_t launch_layout(const WavefrontArgs& a) {
+  if (a.W < 1 || a.W > 32 * C * NW) return cudaErrorInvalidValue;
+  if (a.W == 32 * C * NW) return launch_args<C, NW, false>(a);
+  return launch_args<C, NW, true>(a);
 }
 
 }  // namespace
 
-// One instantiation a band width: 4 warps a pair from W = 128 on (2, 4 and
-// 1 cells a lane at W = 256, 512 and 128), the fastest measured at each
-// (see the note at the head), and a lane a cell below.
+// The built layouts, each exact and ragged: a lane a cell below W = 128;
+// 4 warps a pair and W / 128 cells a lane from 128 to 896 (at 256 and 512
+// the fastest measured, see the note at the head; at 768 3 cells and 8
+// warps tie with it); from 1024 on the fastest of the candidates of
+// scripts/tune_banded.py --layouts, 4, 6, 4, 6 and 8 cells a lane on 8, 8,
+// 16, 16 and 16 warps (1024 / 1536 / 2048 / 3072 / 4096; at 1024 four
+// cells beat eight by 15%: 150 registers a thread at eight).  A band
+// width W runs on the narrowest layout at least W wide.
+extern "C" int fu_wavefront_layout_width(int W) {
+  static const int kWidths[] = {32,  64,  128, 256,  384,  512,  640,
+                                768, 896, 1024, 1536, 2048, 3072, 4096};
+  for (int wp : kWidths)
+    if (W >= 1 && W <= wp) return wp;
+  return 0;
+}
+
 extern "C" int fu_banded_wavefront(const void* qg, const void* trg,
                                    const void* n, const void* m, int P,
                                    int LQG, int LTG, int Lt, int G,
                                    int Dmax, int W, int mode, void* bp,
                                    void* dist, void* end_i, void* end_j,
                                    void* stream) {
-  const auto* q8 = static_cast<const int8_t*>(qg);
-  const auto* t8 = static_cast<const int8_t*>(trg);
-  const auto* n32 = static_cast<const int32_t*>(n);
-  const auto* m32 = static_cast<const int32_t*>(m);
-  auto* bp32 = static_cast<uint32_t*>(bp);
-  auto* d32 = static_cast<int32_t*>(dist);
-  auto* ei = static_cast<int32_t*>(end_i);
-  auto* ej = static_cast<int32_t*>(end_j);
-  auto s = static_cast<cudaStream_t>(stream);
-#define FU_WAVEFRONT(C, NW)                                              \
-  return launch_wavefront<C, NW>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,   \
-                                 Dmax, mode, bp32, d32, ei, ej, s)
-  switch (W) {
-    case 32: FU_WAVEFRONT(1, 1);
-    case 64: FU_WAVEFRONT(1, 2);
-    case 128: FU_WAVEFRONT(1, 4);
-    case 256: FU_WAVEFRONT(2, 4);
-    case 512: FU_WAVEFRONT(4, 4);
+  const WavefrontArgs a{static_cast<const int8_t*>(qg),
+                        static_cast<const int8_t*>(trg),
+                        static_cast<const int32_t*>(n),
+                        static_cast<const int32_t*>(m),
+                        P, LQG, LTG, Lt, G, Dmax, W, mode,
+                        static_cast<uint32_t*>(bp),
+                        static_cast<int32_t*>(dist),
+                        static_cast<int32_t*>(end_i),
+                        static_cast<int32_t*>(end_j),
+                        static_cast<cudaStream_t>(stream)};
+  switch (fu_wavefront_layout_width(W)) {
+    case 32: return launch_layout<1, 1>(a);
+    case 64: return launch_layout<1, 2>(a);
+    case 128: return launch_layout<1, 4>(a);
+    case 256: return launch_layout<2, 4>(a);
+    case 384: return launch_layout<3, 4>(a);
+    case 512: return launch_layout<4, 4>(a);
+    case 640: return launch_layout<5, 4>(a);
+    case 768: return launch_layout<6, 4>(a);
+    case 896: return launch_layout<7, 4>(a);
+    case 1024: return launch_layout<4, 8>(a);
+    case 1536: return launch_layout<6, 8>(a);
+    case 2048: return launch_layout<4, 16>(a);
+    case 3072: return launch_layout<6, 16>(a);
+    case 4096: return launch_layout<8, 16>(a);
     default: return cudaErrorInvalidValue;
   }
-#undef FU_WAVEFRONT
 }
+
+#ifdef FU_WAVEFRONT_CANDIDATES
+// Candidate layouts of the wide bands, for timing them against each other
+// (scripts/tune_banded.py --layouts builds this source once more with
+// -DFU_WAVEFRONT_CANDIDATES): W must equal 32 C NW.
+extern "C" int fu_banded_wavefront_layout(int C, int NW, const void* qg,
+                                          const void* trg, const void* n,
+                                          const void* m, int P, int LQG,
+                                          int LTG, int Lt, int G, int Dmax,
+                                          int W, int mode, void* bp,
+                                          void* dist, void* end_i,
+                                          void* end_j, void* stream) {
+  const WavefrontArgs a{static_cast<const int8_t*>(qg),
+                        static_cast<const int8_t*>(trg),
+                        static_cast<const int32_t*>(n),
+                        static_cast<const int32_t*>(m),
+                        P, LQG, LTG, Lt, G, Dmax, W, mode,
+                        static_cast<uint32_t*>(bp),
+                        static_cast<int32_t*>(dist),
+                        static_cast<int32_t*>(end_i),
+                        static_cast<int32_t*>(end_j),
+                        static_cast<cudaStream_t>(stream)};
+  switch (C * 100 + NW) {
+    case 6 * 100 + 4: return launch_exact<6, 4>(a);    // 768
+    case 3 * 100 + 8: return launch_exact<3, 8>(a);
+    case 8 * 100 + 4: return launch_exact<8, 4>(a);    // 1024
+    case 4 * 100 + 8: return launch_exact<4, 8>(a);
+    case 6 * 100 + 8: return launch_exact<6, 8>(a);    // 1536
+    case 3 * 100 + 16: return launch_exact<3, 16>(a);
+    case 8 * 100 + 8: return launch_exact<8, 8>(a);    // 2048
+    case 4 * 100 + 16: return launch_exact<4, 16>(a);
+    case 2 * 100 + 32: return launch_exact<2, 32>(a);
+    case 6 * 100 + 16: return launch_exact<6, 16>(a);  // 3072
+    case 3 * 100 + 32: return launch_exact<3, 32>(a);
+    case 8 * 100 + 16: return launch_exact<8, 16>(a);  // 4096
+    case 4 * 100 + 32: return launch_exact<4, 32>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
 
 // epilogue 0: out (P, steps) int8 moves in reverse order; 1: out
 // (P, ceil(steps/16) + 3) int32, the packed moves then dist, end_i, end_j;
@@ -821,23 +998,28 @@ extern "C" int fu_traceback(const void* bp, int P, int W, int Dmax,
   const auto* ej = static_cast<const int32_t*>(end_j);
   const auto* d32 = static_cast<const int32_t*>(dist);
   auto s = static_cast<cudaStream_t>(stream);
-  if (W < 32 || (epilogue != kEpiMoves && dist == nullptr))
+  if (W < 1 || (epilogue != kEpiMoves && dist == nullptr))
     return cudaErrorInvalidValue;
+#define FU_TRACEBACK(EPI)                                                \
+  if (W < 32)                                                            \
+    traceback_kernel<EPI, true><<<P, 32, 0, s>>>(bp32, P, W, Dmax, ei, ej, \
+                                                d32, steps, out);        \
+  else                                                                   \
+    traceback_kernel<EPI, false><<<P, 32, 0, s>>>(bp32, P, W, Dmax, ei,  \
+                                                 ej, d32, steps, out)
   switch (epilogue) {
     case kEpiMoves:
-      traceback_kernel<kEpiMoves><<<P, 32, 0, s>>>(bp32, P, W, Dmax, ei, ej,
-                                                   d32, steps, out);
+      FU_TRACEBACK(kEpiMoves);
       break;
     case kEpiPacked:
-      traceback_kernel<kEpiPacked><<<P, 32, 0, s>>>(bp32, P, W, Dmax, ei, ej,
-                                                    d32, steps, out);
+      FU_TRACEBACK(kEpiPacked);
       break;
     case kEpiSummary:
-      traceback_kernel<kEpiSummary><<<P, 32, 0, s>>>(bp32, P, W, Dmax, ei,
-                                                     ej, d32, steps, out);
+      FU_TRACEBACK(kEpiSummary);
       break;
     default:
       return cudaErrorInvalidValue;
   }
+#undef FU_TRACEBACK
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,20 @@
 //   * Each block stops at its own pair's d = min(Dmax - 1, n + m); the
 //     corner is read once after the loop, from the lane holding w = n -
 //     lo(n + m).
+//   * Any band width W from 1 to 4096, as the JAX package runs any W.
+//     14 layouts are built, exact (pairhmm_forward_kernel, the layout's
+//     width a constant) and ragged (pairhmm_forward_ragged_kernel, W at
+//     run time): 32 (1 cell a lane), 64 to 1024 by 128 steps from 128 on
+//     (2 cells, 1 to 16 warps; 128 also 1 cell), 1536 / 2048 / 3072 /
+//     4096 (3 / 4 / 6 / 8 cells, 16 warps).  A W that is no layout's
+//     width runs on the narrowest wider one: the cells w >= W are held at
+//     NEG on every step (a read past the band's top is NEG, as in the TPU
+//     kernel), their lanes' base reads are clamped into the rows, and the
+//     phases start where W's schedule puts them (lo depends on W / 2: an
+//     odd W has the phases of W - 1).  The exact kernels keep their
+//     earlier signature: with the band width as one more argument of a
+//     shared kernel the old widths ran 2-5% slower (scripts/
+//     tune_pairhmm.py, parent and change in turns in one call).
 //
 //   What bounds it (scripts/tune_pairhmm.py on an NVIDIA H100 80GB HBM3 at
 //   700 W, 512-base windows, n + m ~ 900; no profiler): for a lone pair
@@ -130,15 +144,21 @@ __device__ __forceinline__ int base_code(int b, int other) {
   return (b & 0xff) > 3 ? other : (b & 0xff);
 }
 
-template <int C, int NW, bool kStaged>
-__global__ void __launch_bounds__(32 * NW)
-pairhmm_forward_kernel(const int8_t* __restrict__ qg,
-                       const int8_t* __restrict__ trg,
-                       const int32_t* __restrict__ n_arr,
-                       const int32_t* __restrict__ m_arr, int LQG, int LTG,
-                       int Lt, int G, int Dmax, HmmParams hp_ln,
-                       float* __restrict__ ll) {
-  constexpr int W = 32 * C * NW;
+// C cells a lane, NW warps a pair: the layout's width is 32 C NW.  The
+// band is that wide, or with kRagged W_run <= 32 C NW wide: then the cells
+// w >= W are held at NEG on every step (a read past the band's top is NEG,
+// as in the TPU kernel), their lanes' base reads are clamped into the rows,
+// and the phases start where W's own schedule puts them.
+template <int C, int NW, bool kStaged, bool kRagged>
+__device__ __forceinline__ void pairhmm_forward_body(
+    const int8_t* __restrict__ qg, const int8_t* __restrict__ trg,
+    const int32_t* __restrict__ n_arr, const int32_t* __restrict__ m_arr,
+    int LQG, int LTG, int Lt, int G, int Dmax, int W_run, HmmParams hp_ln,
+    float* __restrict__ ll) {
+  constexpr int WP = 32 * C * NW;
+  const int W = kRagged ? W_run : WP;
+  // lo(d) depends on W / 2 only: an odd W has the schedule of W - 1
+  const int W_even = kRagged ? W & ~1 : WP;
   constexpr int T = 32 * NW;
   extern __shared__ uint8_t s_rows[];
   // a warp's values for its neighbours, by step parity: I and M going up
@@ -167,9 +187,11 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
     __syncthreads();
   }
   auto qbase = [&](int k) -> int {
+    if (kRagged) k = min(k, LQG - 1);
     return kStaged ? sq[k] : base_code(__ldg(gq + k), 0xff);
   };
   auto tbase = [&](int k) -> int {
+    if (kRagged) k = min(max(k, 0), LTG - 1);
     return kStaged ? st[k] : base_code(__ldg(gt + k), 0xfe);
   };
 
@@ -248,6 +270,7 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
         vi = (valid && i >= 1) ? vi : kNeg;
         vd = (valid && j >= 1) ? vd : kNeg;
       }
+      if (kRagged && w0 + c >= W) vm = vi = vd = kNeg;
       M[c] = vm;
       I[c] = vi;
       D[c] = vd;
@@ -259,9 +282,10 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   using O = std::integral_constant<int, 1>;
   using Masked = std::true_type;
   using Unmasked = std::false_type;
-  // the prologue (lo = 0 up to d = W, then d = W + 1), masked
+  // the prologue (lo = 0 up to d = W, then d = W + 1; W_even for W), masked
   int d = 0;
-  for (; d <= min(d_end, W - 1); ++d) step(d, d & 1, 0, Z{}, Z{}, Masked{});
+  for (; d <= min(d_end, W_even - 1); ++d)
+    step(d, d & 1, 0, Z{}, Z{}, Masked{});
   if (d <= d_end) step(d++, 0, 0, Z{}, O{}, Masked{});      // d = W
   if (d <= d_end) step(d++, 1, 1, O{}, O{}, Masked{});      // d = W + 1
   // the steady phase from d = W + 2 (even), two steps at a time, unmasked
@@ -283,42 +307,101 @@ pairhmm_forward_kernel(const int8_t* __restrict__ qg,
   if (tid == (hit ? wc / C : 0)) ll[p] = hit ? to_ln(v) : kNeg;
 }
 
-template <int C, int NW>
+// The layout exactly 32 C NW wide.
+template <int C, int NW, bool kStaged>
+__global__ void __launch_bounds__(32 * NW)
+pairhmm_forward_kernel(const int8_t* __restrict__ qg,
+                       const int8_t* __restrict__ trg,
+                       const int32_t* __restrict__ n_arr,
+                       const int32_t* __restrict__ m_arr, int LQG, int LTG,
+                       int Lt, int G, int Dmax, HmmParams hp_ln,
+                       float* __restrict__ ll) {
+  pairhmm_forward_body<C, NW, kStaged, false>(qg, trg, n_arr, m_arr, LQG,
+                                              LTG, Lt, G, Dmax, 32 * C * NW,
+                                              hp_ln, ll);
+}
+
+// Its ragged build: a band W <= 32 C NW wide.
+template <int C, int NW, bool kStaged>
+__global__ void __launch_bounds__(32 * NW)
+pairhmm_forward_ragged_kernel(const int8_t* __restrict__ qg,
+                              const int8_t* __restrict__ trg,
+                              const int32_t* __restrict__ n_arr,
+                              const int32_t* __restrict__ m_arr, int LQG,
+                              int LTG, int Lt, int G, int Dmax, int W,
+                              HmmParams hp_ln, float* __restrict__ ll) {
+  pairhmm_forward_body<C, NW, kStaged, true>(qg, trg, n_arr, m_arr, LQG, LTG,
+                                             Lt, G, Dmax, W, hp_ln, ll);
+}
+
+// One launch of the staged or unstaged build, exact or ragged; smem: the
+// staged rows' bytes (0 unstaged).
+template <int C, int NW, bool kStaged, bool kRagged>
+cudaError_t launch_kernel(const int8_t* qg, const int8_t* trg,
+                          const int32_t* n, const int32_t* m, int P, int LQG,
+                          int LTG, int Lt, int G, int Dmax, int W,
+                          const HmmParams& hp, float* ll, size_t smem,
+                          cudaStream_t stream) {
+  auto set_smem = [&](auto* k) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  };
+  cudaError_t e;
+  if constexpr (kRagged) {
+    auto* k = pairhmm_forward_ragged_kernel<C, NW, kStaged>;
+    if ((e = set_smem(k)) != cudaSuccess) return e;
+    k<<<P, 32 * NW, smem, stream>>>(qg, trg, n, m, LQG, LTG, Lt, G, Dmax, W,
+                                    hp, ll);
+  } else {
+    auto* k = pairhmm_forward_kernel<C, NW, kStaged>;
+    if ((e = set_smem(k)) != cudaSuccess) return e;
+    k<<<P, 32 * NW, smem, stream>>>(qg, trg, n, m, LQG, LTG, Lt, G, Dmax, hp,
+                                    ll);
+  }
+  return cudaGetLastError();
+}
+
+template <int C, int NW, bool kRagged>
 cudaError_t launch_forward(const int8_t* qg, const int8_t* trg,
                            const int32_t* n, const int32_t* m, int P,
-                           int LQG, int LTG, int Lt, int G, int Dmax,
+                           int LQG, int LTG, int Lt, int G, int Dmax, int W,
                            const HmmParams& hp, float* ll,
                            cudaStream_t stream) {
   const size_t rows = ((LQG + 15) & ~15) + static_cast<size_t>(LTG);
-  if (rows <= kStageLimit) {
-    auto* k = pairhmm_forward_kernel<C, NW, true>;
-    if (rows > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(rows));
-      if (e != cudaSuccess) return e;
-    }
-    k<<<P, 32 * NW, rows, stream>>>(qg, trg, n, m, LQG, LTG, Lt, G, Dmax,
-                                    hp, ll);
-  } else {
-    pairhmm_forward_kernel<C, NW, false><<<P, 32 * NW, 0, stream>>>(
-        qg, trg, n, m, LQG, LTG, Lt, G, Dmax, hp, ll);
-  }
-  return cudaGetLastError();
+  if (rows <= kStageLimit)
+    return launch_kernel<C, NW, true, kRagged>(qg, trg, n, m, P, LQG, LTG, Lt,
+                                               G, Dmax, W, hp, ll, rows,
+                                               stream);
+  return launch_kernel<C, NW, false, kRagged>(qg, trg, n, m, P, LQG, LTG, Lt,
+                                              G, Dmax, W, hp, ll, 0, stream);
 }
 
 // The SMs of each device, read once.
 constexpr int kMaxDevices = 64;
 int g_sms[kMaxDevices];
 
+// The built layouts' widths: a band width W runs on the narrowest at least
+// W wide, exactly or in its ragged build.
+constexpr int kWidths[] = {32,  64,  128, 256,  384,  512,  640,
+                           768, 896, 1024, 1536, 2048, 3072, 4096};
+
+int layout_width(int W) {
+  for (int wp : kWidths)
+    if (W >= 1 && W <= wp) return wp;
+  return 0;
+}
+
 // Cells a lane of the launch for band width W and a batch of P pairs on
-// the current device (W / (32 cells) warps a block): W = 128 takes one (4
-// warps) while the batch fits three blocks an SM (P <= 396 on an H100),
-// else two (2 warps); W = 32 one; 64, 256 and 512 two.  0 for a width with
-// no build.
+// the current device ((layout width) / (32 cells) warps a block): at the
+// layout width 128 one (4 warps) while the batch fits three blocks an SM
+// (P <= 396 on an H100), else two (2 warps); 32 one; 64 to 1024 two (1 to
+// 16 warps); 1536, 2048, 3072 and 4096 three, four, six and eight (16
+// warps).  0 for a width with no build.
 int cells_for(int W, int P, int* c) {
-  *c = W == 32 ? 1 : (W == 64 || W == 128 || W == 256 || W == 512 ? 2 : 0);
-  if (W != 128) return 0;
+  const int wp = layout_width(W);
+  *c = wp == 0 ? 0 : (wp == 32 ? 1 : (wp <= 1024 ? 2 : wp / 512));
+  if (wp != 128) return 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -336,8 +419,11 @@ int cells_for(int W, int P, int* c) {
 
 }  // namespace
 
-// The cells a lane (1 or 2) the launch of a batch of P pairs at band width
-// W takes, 0 for a width with no build, or a negated CUDA error.
+// The width of the layout band width W runs on, 0 for a width with none.
+extern "C" int fu_pairhmm_layout_width(int W) { return layout_width(W); }
+
+// The cells a lane the launch of a batch of P pairs at band width W takes,
+// 0 for a width with no build, or a negated CUDA error.
 extern "C" int fu_pairhmm_cells(int W, int P) {
   int c = 0;
   const int e = cells_for(W, P, &c);
@@ -345,8 +431,8 @@ extern "C" int fu_pairhmm_cells(int W, int P) {
 }
 
 // The forward with `cells` cells a lane: 0 for the build fu_pairhmm_cells
-// names, else 1 or 2 (both are built at W = 128 only; for timing them
-// against each other).
+// names, else that build's cells or, at the layout width 128, 1 or 2 (for
+// timing them against each other).
 extern "C" int fu_pairhmm_forward_cells(
     int cells, const void* qg, const void* trg, const void* n, const void* m,
     int P, int LQG, int LTG, int Lt, int G, int Dmax, int W, float em_match,
@@ -365,28 +451,35 @@ extern "C" int fu_pairhmm_forward_cells(
     const int e = cells_for(W, P, &c);
     if (e != 0) return e;
   }
-  switch (W * 4 + c) {
-    case 32 * 4 + 1:
-      return launch_forward<1, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
-    case 64 * 4 + 2:
-      return launch_forward<2, 1>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
-    case 128 * 4 + 1:
-      return launch_forward<1, 4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
-    case 128 * 4 + 2:
-      return launch_forward<2, 2>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
-    case 256 * 4 + 2:
-      return launch_forward<2, 4>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
-    case 512 * 4 + 2:
-      return launch_forward<2, 8>(q8, t8, n32, m32, P, LQG, LTG, Lt, G,
-                                  Dmax, hp, out, s);
+  const int wp = layout_width(W);
+  const bool ragged = W != wp;
+#define FU_HMM(C, NW)                                                      \
+  return ragged ? launch_forward<C, NW, true>(q8, t8, n32, m32, P, LQG,    \
+                                              LTG, Lt, G, Dmax, W, hp,     \
+                                              out, s)                      \
+                : launch_forward<C, NW, false>(q8, t8, n32, m32, P, LQG,   \
+                                               LTG, Lt, G, Dmax, W, hp,    \
+                                               out, s)
+  switch (wp * 16 + c) {
+    case 32 * 16 + 1: FU_HMM(1, 1);
+    case 64 * 16 + 2: FU_HMM(2, 1);
+    case 128 * 16 + 1: FU_HMM(1, 4);
+    case 128 * 16 + 2: FU_HMM(2, 2);
+    case 256 * 16 + 2: FU_HMM(2, 4);
+    case 384 * 16 + 2: FU_HMM(2, 6);
+    case 512 * 16 + 2: FU_HMM(2, 8);
+    case 640 * 16 + 2: FU_HMM(2, 10);
+    case 768 * 16 + 2: FU_HMM(2, 12);
+    case 896 * 16 + 2: FU_HMM(2, 14);
+    case 1024 * 16 + 2: FU_HMM(2, 16);
+    case 1536 * 16 + 3: FU_HMM(3, 16);
+    case 2048 * 16 + 4: FU_HMM(4, 16);
+    case 3072 * 16 + 6: FU_HMM(6, 16);
+    case 4096 * 16 + 8: FU_HMM(8, 16);
     default:
       return cudaErrorInvalidValue;
   }
+#undef FU_HMM
 }
 
 extern "C" int fu_pairhmm_forward(const void* qg, const void* trg,

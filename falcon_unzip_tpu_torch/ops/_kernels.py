@@ -149,6 +149,8 @@ def _load() -> dict:
             lib.fu_traceback.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
                                          ci, vp]
             lib.fu_traceback.restype = ci
+            lib.fu_wavefront_layout_width.argtypes = [ci]
+            lib.fu_wavefront_layout_width.restype = ci
             hmm = ctypes.CDLL(paths["pairhmm"])
             hmm.fu_pairhmm_forward.argtypes = (
                 [vp, vp, vp, vp] + [ci] * 7 + [cf] * 10 + [vp, vp])
@@ -158,6 +160,8 @@ def _load() -> dict:
             hmm.fu_pairhmm_forward_cells.restype = ci
             hmm.fu_pairhmm_cells.argtypes = [ci, ci]
             hmm.fu_pairhmm_cells.restype = ci
+            hmm.fu_pairhmm_layout_width.argtypes = [ci]
+            hmm.fu_pairhmm_layout_width.restype = ci
             arrow = ctypes.CDLL(paths["arrow_splice"])
             arrow.fu_arrow_sweeps.argtypes = (
                 [vp] * 8 + [ci] * 5 + [vp] * 7)
@@ -187,6 +191,17 @@ def _need(x: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
 
 
 MODES = {"global": 0, "qglocal": 1, "tglocal": 2}
+# The widest band the three band kernels take.  Each runs any W from 1 to
+# MAX_W: on a built layout 32 C NW lanes wide exactly, else on the
+# narrowest wider one with its cells past W held out of the band.  At
+# W = 4096 one 256-pair chunk's packed moves are already 1.2 GB.
+MAX_W = 4096
+
+
+def _width(W: int, what: str) -> None:
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"{what}: band width W={W} is outside 1..{MAX_W}, "
+                         f"the widths the kernel is built for")
 
 
 def banded_wavefront(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
@@ -194,11 +209,10 @@ def banded_wavefront(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
                      mode: str, want_bp: bool) -> dict:
     """Launch kernel 1 on CUDA tensors.  Returns dist/end_i/end_j (P,)
     int32 and, if want_bp, bp (ceil(Dmax/16), P, W) int32 packed moves."""
+    _width(W, "banded_wavefront")
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"banded_wavefront needs CUDA tensors, got {dev}")
-    if W not in (32, 64, 128, 256, 512):
-        raise ValueError(f"band width W={W} not supported by the kernel")
     P, LQG = qg.shape
     LTG = trg.shape[1]
     _need(qg, torch.int8, (P, LQG), "qg", dev)
@@ -250,13 +264,12 @@ def traceback(bp: torch.Tensor, end_i: torch.Tensor, end_j: torch.Tensor,
     then dist, end_i, end_j;
     "summary": (P, 7) int32: dist, end_j, n_t, lead, trail, n_up, end_i.
     The last two read dist (P,) int32."""
+    _width(W, "traceback")
     dev = bp.device
     if dev.type != "cuda":
         raise ValueError(f"traceback needs CUDA tensors, got {dev}")
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown traceback epilogue {epilogue!r}")
-    if W not in (32, 64, 128, 256, 512):
-        raise ValueError(f"band width W={W} not supported by the kernel")
     P = bp.shape[1]
     _need(bp, torch.int32, (-(-Dmax // 16), P, W), "bp", dev)
     _need(end_i, torch.int32, (P,), "end_i", dev)
@@ -293,11 +306,10 @@ def pairhmm_forward(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
     """Launch the pair-HMM forward kernel on CUDA tensors.  params: the
     ten log-params (ops.pairhmm.params_vector order).  Returns ll (P,)
     float32."""
+    _width(W, "pairhmm_forward")
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"pairhmm_forward needs CUDA tensors, got {dev}")
-    if W not in (32, 64, 128, 256, 512):
-        raise ValueError(f"band width W={W} not supported by the kernel")
     P, LQG = qg.shape
     LTG = trg.shape[1]
     _need(qg, torch.int8, (P, LQG), "qg", dev)
@@ -330,10 +342,25 @@ def pairhmm_forward(qg: torch.Tensor, trg: torch.Tensor, n: torch.Tensor,
     return ll
 
 
+def layout_width(kernel: str, W: int) -> int:
+    """The width 32 C NW of the built layout that band width W runs on in
+    ``kernel`` ("banded_wavefront" or "pairhmm_forward"): W itself, or the
+    narrowest wider layout, whose cells past W are held out of the band.
+    The traceback takes any W as it is."""
+    _width(W, kernel)
+    libs = _load()
+    if kernel == "banded_wavefront":
+        return libs["banded_align"].fu_wavefront_layout_width(W)
+    if kernel == "pairhmm_forward":
+        return libs["pairhmm"].fu_pairhmm_layout_width(W)
+    raise ValueError(f"no layouts for {kernel!r}")
+
+
 def pairhmm_cells(W: int, P: int, device=None) -> int:
-    """The band cells a lane (1 or 2; W / (32 cells) warps a block) that
-    ``pairhmm_forward`` launches a batch of P pairs at band width W with on
-    a CUDA device."""
+    """The band cells a lane (1 to 8; the layout's width / (32 cells) warps
+    a block) that ``pairhmm_forward`` launches a batch of P pairs at band
+    width W with on a CUDA device."""
+    _width(W, "pairhmm_cells")
     lib = _load()["pairhmm"]
     with torch.cuda.device(device):
         c = lib.fu_pairhmm_cells(W, P)

@@ -3,6 +3,9 @@ NVIDIA GPU, at the main path's shape and around it.
 
     python -m falcon_unzip_tpu_torch.scripts.tune_banded [--W 128|256|512]
     python falcon_unzip_tpu_torch/scripts/tune_banded.py --root OTHER_CHECKOUT
+    python -m falcon_unzip_tpu_torch.scripts.tune_banded --layouts
+    python -m falcon_unzip_tpu_torch.scripts.tune_banded --build-only \
+        [--root OTHER_CHECKOUT]
 
 At W=256 (or --W), tglocal, query bucket 2048 (the shape of the overlap
 and placement alignments; P seeded pairs, half exact and half at 15% error,
@@ -22,15 +25,30 @@ query lengths in (1024, 2048], the schedule cut as
 ``--root`` times another checkout's package (one whose traceback has
 only the moves, for example) with the same inputs, so that two designs
 are compared inside one run on one card.
+
+``--layouts`` times the candidate (C cells a lane, NW warps) layouts of
+the wide bands against each other at the same shape: the wavefront source
+is built once more with ``-DFU_WAVEFRONT_CANDIDATES`` (an entry point
+that launches any candidate) into ``_build/candidates/``; each candidate
+is checked bit-exact against the plain version, then timed beside the
+package's own build at that width and at a ragged width just below it.
+
+``--build-only`` compiles each CUDA source of the package (``--root``'s,
+or this one's) alone with the package's nvcc flags into a temporary
+directory and prints the seconds each took.
 Times are CUDA events over REPS launches after a warm-up.  Needs a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import inspect
 import json
 import os
+import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -128,11 +146,104 @@ def measure(pkg, W: int = 256) -> dict:
     return out
 
 
+# the candidate layouts (C, NW) of each wide band width, 32 C NW == W
+CANDIDATES = {768: ((6, 4), (3, 8)), 1024: ((8, 4), (4, 8)),
+              1536: ((6, 8), (3, 16)),
+              2048: ((8, 8), (4, 16), (2, 32)), 3072: ((6, 16), (3, 32)),
+              4096: ((8, 16), (4, 32))}
+
+
+def _candidate_lib(kn):
+    """The wavefront source built with its candidate layouts' entry."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(kn.__file__))), "csrc", "banded_align.cu")
+    out_dir = os.path.join(kn.BUILD_DIR, "candidates")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libbanded_candidates.so")
+    t0 = time.perf_counter()
+    subprocess.run([kn._nvcc(), *kn.NVCC_FLAGS, "-DFU_WAVEFRONT_CANDIDATES",
+                    "-o", lib_path, src], check=True, capture_output=True)
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fu_banded_wavefront_layout.argtypes = (
+        [ci, ci, vp, vp, vp, vp] + [ci] * 8 + [vp] * 5)
+    lib.fu_banded_wavefront_layout.restype = ci
+    return lib, build_s
+
+
+def measure_layouts(pkg) -> dict:
+    """Each candidate layout's wavefront ms a launch at P = 256 (checked
+    bit-exact first), the package's own build at that width and at a
+    ragged width 100 below it."""
+    ba, kn = pkg["ba"], pkg["kernels"]
+    lib, build_s = _candidate_lib(kn)
+    out = {"shape": {"mode": MODE, "bq": BQ, "P": 256},
+           "candidates_build_s": build_s, "by_W": {}}
+    for W, layouts in CANDIDATES.items():
+        args, lo, kw, Dmax = _inputs(pkg, 256, 2024, W)
+        plain = ba.banded_align_batch_plain(*args, lo, **kw)
+        P = args[0].shape[0]
+        row = {"Dmax": Dmax, "layouts": {}}
+        for C, NW in layouts:
+            res = {k: torch.empty_like(plain[k]) for k in plain}
+            stream = torch.cuda.current_stream()
+
+            def launch():
+                code = lib.fu_banded_wavefront_layout(
+                    C, NW, *(a.data_ptr() for a in args), P,
+                    args[0].shape[1], args[1].shape[1], kw["Lt"], kw["G"],
+                    Dmax, W, kn.MODES[MODE], res["bp"].data_ptr(),
+                    res["dist"].data_ptr(), res["end_i"].data_ptr(),
+                    res["end_j"].data_ptr(), stream.cuda_stream)
+                if code != 0:
+                    raise RuntimeError(f"layout ({C}, {NW}): CUDA error "
+                                       f"{code}")
+            launch()
+            for key in ("dist", "end_i", "end_j", "bp"):
+                if not torch.equal(res[key], plain[key]):
+                    raise SystemExit(f"layout ({C}, {NW}) W={W}: {key} "
+                                     "differs")
+            row["layouts"][f"{C}x{NW}"] = time_ms(launch, REPS, spin=False)
+        row["package_ms"] = time_ms(lambda: kn.banded_wavefront(
+            *args, Dmax=Dmax, want_bp=True, **kw), REPS, spin=False)
+        Wr = W - 100
+        a_r, lo_r, kw_r, D_r = _inputs(pkg, 256, 2024, Wr)
+        got = kn.banded_wavefront(*a_r, Dmax=D_r, want_bp=True, **kw_r)
+        want = ba.banded_align_batch_plain(*a_r, lo_r, **kw_r)
+        for key in ("dist", "end_i", "end_j", "bp"):
+            if not torch.equal(got[key], want[key]):
+                raise SystemExit(f"ragged W={Wr}: {key} differs")
+        row[f"package_ms_W{Wr}"] = time_ms(lambda: kn.banded_wavefront(
+            *a_r, Dmax=D_r, want_bp=True, **kw_r), REPS, spin=False)
+        out["by_W"][str(W)] = row
+        print(json.dumps({str(W): row}), flush=True)
+    out["card"] = pkg["card_label"]()
+    return out
+
+
+def build_seconds(kn) -> dict:
+    """Seconds of nvcc for each CUDA source of the package alone."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in kn.SOURCES:
+            t0 = time.perf_counter()
+            subprocess.run([kn._nvcc(), *kn.NVCC_FLAGS, "-o",
+                            os.path.join(tmp, "lib.so"), src], check=True,
+                           capture_output=True)
+            out[os.path.basename(src)] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--W", type=int, default=256, help="band width")
     ap.add_argument("--root", default=None,
                     help="time the package of this checkout instead")
+    ap.add_argument("--layouts", action="store_true",
+                    help="time the wide bands' candidate layouts")
+    ap.add_argument("--build-only", action="store_true",
+                    help="time each source's nvcc build alone")
     args = ap.parse_args(argv)
     load_package(args.root)
     from falcon_unzip_tpu_torch.bench import card_label
@@ -146,7 +257,12 @@ def main(argv=None) -> dict:
     pkg = {"ba": ba, "kernels": _kernels, "card_label": card_label,
            "t_bucket": _t_bucket, "mutate_read": mutate_read,
            "random_genome": random_genome}
-    res = measure(pkg, args.W)
+    if args.build_only:
+        res = {"build_s": build_seconds(_kernels)}
+    elif args.layouts:
+        res = measure_layouts(pkg)
+    else:
+        res = measure(pkg, args.W)
     res["package"] = os.path.dirname(os.path.dirname(
         os.path.abspath(ba.__file__)))
     print(json.dumps(res))

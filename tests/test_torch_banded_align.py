@@ -51,7 +51,9 @@ def _pairs(W: int, mode: str, seed: int):
             tb.lengths.astype(np.int32), qs, ts)
 
 
-@pytest.mark.parametrize("W", [128, 256, 512])
+# the card kernels' own layout widths and ragged widths (odd, under a warp,
+# between layouts), which the kernels run on a wider layout
+@pytest.mark.parametrize("W", [1, 2, 33, 96, 128, 200, 256, 384, 512, 768])
 @pytest.mark.parametrize("mode", MODES)
 def test_plain_wavefront_and_traceback_match_jax(W, mode):
     q, t, n, m, qs, ts = _pairs(W, mode, seed=W + len(mode))
@@ -176,7 +178,7 @@ def _both(W, mode, seed):
     return n, m, Dmax, lo, r, p
 
 
-@pytest.mark.parametrize("W", [128, 256])
+@pytest.mark.parametrize("W", [2, 33, 128, 200, 256])
 @pytest.mark.parametrize("mode", MODES)
 def test_epilogue_compositions_match_jax(W, mode):
     """The plain versions behind the kernel's packed and summary
@@ -204,10 +206,14 @@ def test_epilogue_compositions_match_jax(W, mode):
             assert got.dtype == torch.int32
             assert np.array_equal(got.numpy(), want_summary), fn.__name__
     # the all-insertion pair (m = 0): every move MOVE_UP, so the leading
-    # and the trailing run are the whole path
+    # and the trailing run are the whole path (where its corner (70, 0) is
+    # in the band; a narrower band leaves it without a path)
     s = port.traceback_summary(p["bp"], lo, p["dist"], p["end_i"],
                                p["end_j"], max_steps=Dmax - 1).numpy()[-2]
-    assert (s[2], s[3], s[4], s[5]) == (0, 70, 70, 70)
+    if 70 - int(lo[70]) < W:
+        assert (s[2], s[3], s[4], s[5]) == (0, 70, 70, 70)
+    else:
+        assert (s[2], s[3], s[4], s[5]) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -268,3 +274,21 @@ def test_unpack_bp_inverts_packing():
     packed = np.where(packed >= 1 << 31, packed - (1 << 32), packed)
     got = port.unpack_bp(torch.from_numpy(packed.astype(np.int32)), 37)
     assert np.array_equal(got.numpy(), bp8.astype(np.int8))
+
+
+@pytest.mark.parametrize("W", [0, 4097, 8192])
+def test_kernel_wrappers_refuse_widths_outside_the_builds(W):
+    """The card kernels take every band width from 1 to 4096 and refuse
+    the others, naming W and the limit, before looking at the tensors."""
+    x8 = torch.zeros((2, 64), dtype=torch.int8)
+    i32 = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"W={W} is outside 1..4096"):
+        _kernels.banded_wavefront(x8, x8, i32, i32, W=W, Lt=16, G=4,
+                                  Dmax=33, mode="global", want_bp=True)
+    with pytest.raises(ValueError, match=f"W={W} is outside 1..4096"):
+        _kernels.traceback(torch.zeros((3, 2, 4), dtype=torch.int32), i32,
+                           i32, W=W, Dmax=33, max_steps=32)
+    with pytest.raises(ValueError, match=f"W={W} is outside 1..4096"):
+        _kernels.pairhmm_forward(x8, x8, i32, i32, [0.0] * 10, W=W, Lt=16,
+                                 G=4, Dmax=33)
+    assert _kernels.MAX_W == 4096

@@ -52,7 +52,13 @@ def _batch(W, mode, seed, P=48):
             tb.lengths.astype(np.int32))
 
 
-@pytest.mark.parametrize("W", [128, 256, 512])
+# the built layouts' own widths and ragged widths between them (run on the
+# narrowest wider layout with the cells past W held out of the band)
+_WIDTHS = [2, 16, 33, 48, 96, 128, 200, 256, 384, 512, 640, 768, 1024, 1100,
+           2048, 4096]
+
+
+@pytest.mark.parametrize("W", _WIDTHS)
 @pytest.mark.parametrize("mode", ["global", "qglocal", "tglocal"])
 def test_kernels_match_plain_on_card(cuda, W, mode):
     q, t, n, m = _batch(W, mode, seed=W + len(mode))
@@ -104,7 +110,8 @@ def _hard_batch(W, mode, seed):
             tb.lengths.astype(np.int32))
 
 
-@pytest.mark.parametrize("W", [32, 128, 256, 512])
+@pytest.mark.parametrize("W", [2, 32, 33, 128, 200, 256, 384, 512, 1024,
+                               2048])
 @pytest.mark.parametrize("mode", ["global", "qglocal", "tglocal"])
 def test_early_stop_and_epilogues_match_plain_on_card(cuda, W, mode):
     """Short pairs in a long bucket, degenerate and unalignable pairs:
@@ -176,9 +183,12 @@ def test_traceback_follows_arbitrary_moves_on_card(cuda, p_none):
     rng = np.random.default_rng(9)
     probs = np.array([0.5, 0.25, 0.25, 0.0]) * (1 - p_none)
     probs[3] = p_none
-    for W, Dmax in ((32, 200), (64, 333), (128, 700), (256, 1500),
-                    (512, 2100)):
-        P = 40
+    # also bands narrower than the kernel's 64-word window (W < 64) and
+    # wider than 2048
+    for W, Dmax, P in ((32, 200, 40), (64, 333, 40), (128, 700, 40),
+                       (256, 1500, 40), (512, 2100, 40), (1, 150, 40),
+                       (2, 170, 40), (16, 250, 40), (33, 300, 40),
+                       (200, 900, 40), (3000, 700, 6), (4096, 600, 4)):
         _, lo = ba.build_schedule(Dmax - 1, 0, W)
         fields = rng.choice(4, p=probs, size=(-(-Dmax // 16), P, W, 16))
         words = (fields.astype(np.int64) << (2 * np.arange(16))).sum(-1)
@@ -333,7 +343,8 @@ def _close(k, p):
         float(err.max())
 
 
-@pytest.mark.parametrize("W", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("W", [16, 32, 48, 64, 96, 128, 200, 256, 384, 512,
+                               640, 768, 1024, 2048, 4096])
 def test_pairhmm_kernel_matches_plain_on_card(cuda, W):
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
     q, t, n, m = _batch(W, "global", seed=W + 7, P=40)
@@ -368,7 +379,11 @@ def _pairhmm_matches_plain(batch, W, dev):
 # each build of the forward: (band width, a batch size it is launched at or
 # None for the batch's own, the cells a lane the launch takes)
 _HMM_BUILDS = [(32, None, 1), (64, None, 2), (128, None, 1), (128, 600, 2),
-               (256, None, 2), (512, None, 2)]
+               (256, None, 2), (512, None, 2),
+               # ragged widths (the cells past W held at NEG) and wide ones
+               (16, None, 1), (33, None, 2), (96, None, 1), (96, 600, 2),
+               (200, None, 2), (384, None, 2), (1024, None, 2),
+               (1500, None, 3), (2048, None, 4)]
 
 
 @pytest.mark.parametrize("W, P, cells", _HMM_BUILDS)
@@ -537,3 +552,28 @@ def test_ablation_kernel_equals_plain_on_card(cuda, Dmax, P):
             torch.testing.assert_close(k, p, rtol=1e-5, atol=0)
         else:
             assert torch.equal(k, p), feats             # tolerance 0
+
+
+def test_layouts_of_every_width_on_card(cuda):
+    """Every band width from 1 to 4096 has a layout at least as wide in
+    both band kernels (its own width where one is built), and the
+    bindings refuse the widths past 4096 before anything is launched."""
+    built = {32, 64, 128, 256, 384, 512, 640, 768, 896, 1024, 1536, 2048,
+             3072, 4096}
+    for kernel in ("banded_wavefront", "pairhmm_forward"):
+        prev = 0
+        for W in range(1, 4097):
+            wp = _kernels.layout_width(kernel, W)
+            assert wp >= W and (wp == W) == (W in built), (kernel, W)
+            assert wp >= prev
+            prev = wp
+    x8 = torch.zeros((2, 8192), dtype=torch.int8, device=cuda)
+    i32 = torch.zeros(2, dtype=torch.int32, device=cuda)
+    _kernels.reset_counts()
+    with pytest.raises(ValueError, match="4097 is outside 1..4096"):
+        _kernels.banded_wavefront(x8, x8, i32, i32, W=4097, Lt=16, G=4099,
+                                  Dmax=33, mode="global", want_bp=True)
+    with pytest.raises(ValueError, match="4097 is outside 1..4096"):
+        _kernels.pairhmm_forward(x8, x8, i32, i32, [0.0] * 10, W=4097,
+                                 Lt=16, G=4099, Dmax=33)
+    assert all(k.launches == 0 for k in _kernels.KERNELS)

@@ -50,7 +50,8 @@ def _pairs(seed, P=8, lens=(60, 140), errs=(0.0, 0.05, 0.1, 0.2)):
     return qs, ts, qb.data, tb.data, qb.lengths, tb.lengths
 
 
-@pytest.mark.parametrize("W", [32, 64, 128])
+# layout widths of the card kernel and ragged widths it runs on a wider one
+@pytest.mark.parametrize("W", [16, 32, 33, 48, 64, 96, 128, 200])
 def test_plain_forward_matches_forward_core(W):
     _, _, q, t, n, m = _pairs(seed=W)
     qg, trg, G = prepare_batch(q, t, W)
@@ -98,7 +99,7 @@ def test_kernel_wrapper_refuses_cpu_tensors(monkeypatch):
         port_hmm.PairHMMScorer(W=64, device="cuda")
 
 
-@pytest.mark.parametrize("W", [32, 128])
+@pytest.mark.parametrize("W", [16, 32, 33, 48, 96, 128, 200])
 @pytest.mark.parametrize("kind", hb.EDGE_KINDS)
 def test_plain_forward_edge_batches_match_forward_core(kind, W):
     """The edge batches the card kernel is held to (utils/hmm_batches.py):
