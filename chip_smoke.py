@@ -44,25 +44,40 @@ non-zero:
    them; each set's time from the NEG and from a seeded start beside its
    SFU floor and the card's name and power limit;
 3e. band widths off the main path's: the wavefront and traceback (moves,
-   packed, summary) bit-exact to their plain versions at W = 2, 16, 33,
-   48, 96, 200, 384, 640, 768, 1024, 2048 and 4096 (the built layouts'
-   own widths and ragged ones, run on the narrowest wider layout), each
-   mode, P=64, query bucket 1024 (2048 at W = 4096, which is wider than
-   bucket 1024's guarded rows), each time beside its bound, and at W =
-   200 on phase 3's short and unalignable batches; the pair-HMM forward
-   at W = 16, 48, 96, 200, 384 and 1024, timed at P=256 on 512 bp
-   windows beside its bound and SFU floor and held on every edge batch
-   within 1e-3 relative, out-of-band pairs exactly NEG; the golden
-   fixture through the command line on cuda at [align] band 384 /
-   [overlap] band 200 and at [align] band 768 (the wavefront launched at
-   each configured width and at placement's max(512, band)), its 3-unzip
-   and cns fasta files byte-identical to the port's CPU run of the same
-   config (started in subprocesses at the phase's start) and its cns
-   fastq sequences equal, QVs within 1;
+   packed, summary) at W = 2, 16, 33, 48, 96, 200, 384, 640, 768, 1024,
+   2048 and 4096 (the built layouts' own widths and ragged ones, run on
+   the narrowest wider layout), each mode, timed at P=64 in query bucket
+   1024 (2048 at W = 4096, which is wider than bucket 1024's guarded
+   rows) beside the bound, and held bit-exact against their plain
+   versions on every fourth pair of that batch (16 pairs; bands up to
+   256 wide on 16 pairs of bucket 256), and at W = 200 on phase 3's
+   short and unalignable batches; the pair-HMM forward at W = 16, 48,
+   96, 200, 384 and 1024, timed at P=256 on 512 bp windows beside its
+   bound and SFU floor and held on every edge batch within 1e-3
+   relative, out-of-band pairs exactly NEG; the golden fixture through
+   the command line on cuda at [align] band 384 / [overlap] band 200 and
+   at [align] band 768 (the wavefront launched at each configured width
+   and at placement's max(512, band)), its 3-unzip and 4-polish files
+   equal to the JAX package's digests of the same config
+   (falcon_unzip_tpu_torch/utils/knob_configs.py) and its consensus QVs
+   within 1;
 4. golden fixture: 3-unzip and 4-polish on cuda through the port's
    command line must reproduce the five golden hashes of
-   tests/test_golden.py, and cns_*.fastq must carry the sequences of a
-   4-polish run of the plain versions on the CPU, QVs within 1;
+   tests/test_golden.py, and every file they write must equal the JAX
+   package's digest of the default run in
+   falcon_unzip_tpu_torch/utils/knob_configs.py, consensus QVs within 1;
+4k. the knob groups of falcon_unzip_tpu_torch/utils/knob_configs.py
+   (pipeline config fields off their defaults, on the golden fixture,
+   its raw reads as a fofn of a FASTQ with per-base quality tracks and a
+   FASTA, or its draft polished without haplotigs) through the command
+   line on cuda, the 4-polish-only groups from phase 4's 3-unzip: each
+   stage's files equal to the JAX package's digest, the consensus QVs
+   within 1 of its QV lines; each group's seconds, launches, the
+   wavefront's P and the Arrow sweeps' warps a block, candidates C, row
+   length LJ and tier mode, which must show the wavefront at P=24
+   (align_exec), the Arrow sweeps at P=12 in the 8-warp build, the last
+   launch ragged (polish_exec), their wide build at C=12 and LJ=768
+   (polish_sem) and their per-base tier mode (qv_per_base);
 4b. re-forward polish: the golden fixture's contigs and raw-read AlnSet
    polished with Polisher(scorer=PairHMMScorer(device="cuda")), every
    covered column a mutation candidate (margin_frac 1.01), equal the
@@ -265,11 +280,12 @@ def _unalignable_pairs(rng, P, bq, mode):
     return qs, ts
 
 
-def _align_case(torch, np, W, mode, bq, qs, ts, tag, P) -> dict:
+def _align_case(torch, np, W, mode, bq, qs, ts, tag, P, plain=True) -> dict:
     """The banded wavefront and traceback (moves, packed and summary
     epilogues) on one batch of pairs in query bucket bq, against their
     plain versions on the card, bit-exact (a difference fails); the times
-    of kernel and plain version and the work of both kernels."""
+    of kernel and plain version and the work of both kernels.  With plain
+    False the kernels are only timed."""
     from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.models.aligner import _t_bucket
@@ -290,73 +306,76 @@ def _align_case(torch, np, W, mode, bq, qs, ts, tag, P) -> dict:
             torch.from_numpy(m).to(dev), lo)
     kw = dict(W=W, Lt=bt, G=G, mode=mode)
     where = f"W={W} {mode} bq={bq}{tag}"
-    k = ba.banded_align_batch(*args, **kw)
-    t0 = time.perf_counter()
-    p = ba.banded_align_batch_plain(*args, **kw)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    wf_err = max(int((k[key] - p[key]).abs().max())
-                 for key in ("dist", "end_i", "end_j"))
-    wf_err = max(wf_err, int((ba.unpack_bp(k["bp"], Dmax).int()
-                              - ba.unpack_bp(p["bp"], Dmax).int()
-                              ).abs().max()))
-    for key in ("dist", "end_i", "end_j", "bp"):
-        if not torch.equal(k[key], p[key]):
-            _fail(f"wavefront {key} differs at {where}")
     steps = Dmax - 1
-    tk = ba.traceback_batch(k["bp"], lo, k["end_i"], k["end_j"],
-                            max_steps=steps)
-    t0 = time.perf_counter()
-    tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"], p["end_j"],
-                                  max_steps=steps)
-    torch.cuda.synchronize()
-    plain_tb_ms = 1e3 * (time.perf_counter() - t0)
-    tb_err = int((tk.int() - tp.int()).abs().max())
-    if not torch.equal(tk, tp):
-        _fail(f"traceback differs at {where}")
-    n_moves = int((tk != ba.MOVE_NONE).sum())
+    k = ba.banded_align_batch(*args, **kw)
     ends = (k["dist"], k["end_i"], k["end_j"])
-    epi_ms = {}
-    # the plain compositions, over the plain moves made just above
-    # (what traceback_packed_plain / traceback_summary_plain compute)
-    plain_ends = (p["dist"], p["end_i"], p["end_j"])
-    wants = {"packed": ba._combine_results(ba.pack_moves2(tp), *plain_ends),
-             "summary": ba._summarize_moves(tp, *plain_ends)}
-    for name, want in wants.items():
-        fused = getattr(ba, f"traceback_{name}")
-        got = fused(k["bp"], lo, *ends, max_steps=steps)
-        if not torch.equal(got, want):
-            _fail(f"traceback {name} epilogue differs at {where}")
-        epi_ms[name] = time_ms(lambda: fused(
-            k["bp"], lo, *ends, max_steps=steps), 3)
-    finite = int((k["dist"] < 1 << 20).sum())
+    tk = ba.traceback_batch(k["bp"], lo, *ends[1:], max_steps=steps)
+    n_moves = int((tk != ba.MOVE_NONE).sum())
+    res = dict(bt=bt, Dmax=Dmax, n_moves=n_moves,
+               finite=int((k["dist"] < 1 << 20).sum()),
+               wf_work=bench.wavefront_work(
+                   n, m, Dmax=Dmax, W=W, LQG=qg.shape[1], LTG=trg.shape[1]),
+               tb_work=bench.traceback_work(n_moves, P=P, max_steps=steps))
+    if plain:
+        t0 = time.perf_counter()
+        p = ba.banded_align_batch_plain(*args, **kw)
+        torch.cuda.synchronize()
+        res["wf_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        wf_err = max(int((k[key] - p[key]).abs().max())
+                     for key in ("dist", "end_i", "end_j"))
+        res["wf_err"] = max(wf_err, int(
+            (ba.unpack_bp(k["bp"], Dmax).int()
+             - ba.unpack_bp(p["bp"], Dmax).int()).abs().max()))
+        for key in ("dist", "end_i", "end_j", "bp"):
+            if not torch.equal(k[key], p[key]):
+                _fail(f"wavefront {key} differs at {where}")
+        t0 = time.perf_counter()
+        tp = ba.traceback_batch_plain(p["bp"], lo, p["end_i"], p["end_j"],
+                                      max_steps=steps)
+        torch.cuda.synchronize()
+        res["tb_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["tb_err"] = int((tk.int() - tp.int()).abs().max())
+        if not torch.equal(tk, tp):
+            _fail(f"traceback differs at {where}")
+        # the plain compositions, over the plain moves made just above
+        # (what traceback_packed_plain / traceback_summary_plain compute)
+        plain_ends = (p["dist"], p["end_i"], p["end_j"])
+        wants = {"packed": ba._combine_results(ba.pack_moves2(tp),
+                                               *plain_ends),
+                 "summary": ba._summarize_moves(tp, *plain_ends)}
+        for name, want in wants.items():
+            got = getattr(ba, f"traceback_{name}")(k["bp"], lo, *ends,
+                                                   max_steps=steps)
+            if not torch.equal(got, want):
+                _fail(f"traceback {name} epilogue differs at {where}")
     if tag.endswith("short pairs") and 2 * int(np.sort(n + m)[-9]) >= Dmax:
         _fail(f"the short pairs are not short: Dmax {Dmax}")
-    if tag.endswith("unalignable pairs") and finite:
-        _fail(f"{finite} of the unalignable pairs aligned")
-    wf_ms = time_ms(lambda: ba.banded_align_batch(*args, **kw), 3)
-    tb_ms = time_ms(lambda: ba.traceback_batch(
+    if tag.endswith("unalignable pairs") and res["finite"]:
+        _fail(f"{res['finite']} of the unalignable pairs aligned")
+    res["epi_ms"] = {name: time_ms(lambda: getattr(
+        ba, f"traceback_{name}")(k["bp"], lo, *ends, max_steps=steps), 3)
+        for name in ("packed", "summary")}
+    res["wf_ms"] = time_ms(lambda: ba.banded_align_batch(*args, **kw), 3)
+    res["tb_ms"] = time_ms(lambda: ba.traceback_batch(
         k["bp"], lo, k["end_i"], k["end_j"], max_steps=steps), 3)
-    return dict(bt=bt, Dmax=Dmax, finite=finite, n_moves=n_moves,
-                wf_ms=wf_ms, wf_plain_ms=plain_ms, tb_ms=tb_ms,
-                tb_plain_ms=plain_tb_ms, epi_ms=epi_ms, wf_err=wf_err,
-                tb_err=tb_err,
-                wf_work=bench.wavefront_work(
-                    n, m, Dmax=Dmax, W=W, LQG=qg.shape[1], LTG=trg.shape[1]),
-                tb_work=bench.traceback_work(n_moves, P=P, max_steps=steps))
+    return res
 
 
 def _align_line(W, mode, bq, tag, P, r) -> str:
-    """Phase 3's line of one batch: exactness and the kernels' times beside
-    their plain versions' and their bounds."""
+    """Phase 3's line of one batch: the kernels' times beside their bounds,
+    and beside their plain versions' where the batch was held against
+    them."""
     from falcon_unzip_tpu_torch import bench
     bounds = [bench.bound_ms(w["ops"], w["bytes"], w["peak"])[0]
               for w in (r["wf_work"], r["tb_work"])]
+    held = "wf_plain_ms" in r
+    plain = [f"plain {r[k]:.1f} ms, " if held else ""
+             for k in ("wf_plain_ms", "tb_plain_ms")]
     return (f"W={W} {mode} bq={bq} bt={r['bt']} Dmax={r['Dmax']}{tag} P={P} "
-            f"finite={r['finite']}/{P} exact | wavefront {r['wf_ms']:.3f} ms"
-            f" (plain {r['wf_plain_ms']:.1f} ms, bound {bounds[0]:.4f} ms) |"
-            f" traceback {r['tb_ms']:.3f} ms (plain {r['tb_plain_ms']:.1f} "
-            f"ms, bound {bounds[1]:.5f} ms), packed "
+            f"finite={r['finite']}/{P} {'exact' if held else 'timed'} | "
+            f"wavefront {r['wf_ms']:.3f} ms ({plain[0]}bound "
+            f"{bounds[0]:.4f} ms) | traceback {r['tb_ms']:.3f} ms "
+            f"({plain[1]}bound {bounds[1]:.5f} ms), packed "
             f"{r['epi_ms']['packed']:.3f} ms, summary "
             f"{r['epi_ms']['summary']:.3f} ms")
 
@@ -655,20 +674,6 @@ GOLDEN = {"3-unzip/all_p_ctg.fa": "2864673ab4dc9bf2",
           "4-polish/cns_h_ctg.fasta": "70b2521a58bd85f1"}
 
 
-def _decode(codes) -> str:
-    """int8 base codes (A C G T N = 0..4) -> ASCII."""
-    import numpy as np
-    return np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
-
-
-def _write_fasta(path, records) -> None:
-    with open(path, "w") as fh:
-        for name, seq in records:
-            fh.write(f">{name}\n")
-            for i in range(0, len(seq), 80):
-                fh.write(seq[i : i + 80] + "\n")
-
-
 def _read_fasta(np, path) -> list:
     """[(name, int8 base codes)] of a FASTA file (A C G T = 0..3, else 4)."""
     lut = np.full(256, 4, np.int8)
@@ -697,13 +702,15 @@ def _fasta_lengths(path) -> list:
 
 
 def _write_inputs(d, draft, preads, raw) -> None:
-    """draft: [(name, Diploid)]; preads / raw: [(name_prefix, SeqBatch)]."""
+    """Phase 5's inputs and run.json in d (also scripts/mesh_cards.py's).
+    draft: [(name, Diploid)]; preads / raw: [(name_prefix, SeqBatch)]."""
+    from falcon_unzip_tpu_torch.io.fasta import write_fasta
+    from falcon_unzip_tpu_torch.seq import decode
     for fn, reads in (("preads.fa", preads), ("raw.fa", raw)):
-        _write_fasta(f"{d}/{fn}",
-                     ((pre + b.names[i], b.to_str(i)) for pre, b in reads
-                      for i in range(len(b))))
-    _write_fasta(f"{d}/draft.fa",
-                 [(name, _decode(dip.hap0)) for name, dip in draft])
+        write_fasta(f"{d}/{fn}", ((pre + b.names[i], b.to_str(i))
+                                  for pre, b in reads for i in range(len(b))))
+    write_fasta(f"{d}/draft.fa",
+                [(name, decode(dip.hap0)) for name, dip in draft])
     with open(f"{d}/run.json", "w") as fh:
         json.dump({"preads": f"{d}/preads.fa", "reads": f"{d}/raw.fa",
                    "draft": f"{d}/draft.fa", "out_dir": f"{d}/out"}, fh)
@@ -720,33 +727,15 @@ def _launches(kernels):
     return {k.name: k.launches for k in kernels}
 
 
-def _golden_fixture(d, sections=None) -> None:
-    """The golden fixture's inputs and run.json in a new directory d (the
-    seeds of tests/test_golden.py), with the config sections given
-    ({section: {key: value}}) in run.json."""
-    from falcon_unzip_tpu_torch.utils.simulate import (make_diploid,
-                                                       simulate_reads)
-    os.makedirs(d)
-    dip = make_diploid(length=6000, het_rate=0.02, seed=77,
-                       het_span=(0.3, 0.7))
-    pr = simulate_reads(dip, coverage=14.0, read_len=1800, error_rate=0.0,
-                        seed=78)
-    raw = simulate_reads(dip, coverage=16.0, read_len=1500, error_rate=0.03,
-                         seed=79)
-    # the golden draft is named d0 (tests/test_golden.py)
-    _write_inputs(d, [("d0", dip)], [("", pr.batch)], [("", raw.batch)])
-    if sections:
-        with open(f"{d}/run.json") as fh:
-            run = json.load(fh)
-        run.update(sections)
-        with open(f"{d}/run.json", "w") as fh:
-            json.dump(run, fh)
-
-
 def phase_golden(tmp) -> str:
+    """The golden fixture (and the fofn input of utils/knob_configs.py)
+    through the command line on cuda: the default run of phase 4k."""
     from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils import knob_configs as kc
     d = os.path.join(tmp, "golden")
-    _golden_fixture(d)
+    kc.write_inputs(d)
+    with open(f"{d}/run.json", "w") as fh:
+        json.dump(kc.run_config(kc.BY_NAME["default"], d, f"{d}/out"), fh)
     align = (_kernels.WAVEFRONT, _kernels.TRACEBACK)
     _kernels.reset_counts()
     t0 = time.perf_counter()
@@ -769,54 +758,18 @@ def phase_golden(tmp) -> str:
               f"{unzip_launches}")
     if min(quiver_launches[k.name] for k in align) <= 0:
         _fail(f"golden quiver did not align on the card: {quiver_launches}")
-    n_qv = _fastq_vs_cpu(d)
+    n_qv = 0
+    for stage in ("unzip", "quiver"):
+        try:
+            n_qv += kc.check("default", stage, f"{d}/out")
+        except ValueError as e:
+            _fail(f"golden on cuda: {e}")
     print(f"[4 golden] unzip {unzip_s:.1f} s, quiver {quiver_s:.1f} s | "
           f"hashes match {got} | launches unzip {unzip_launches}, quiver "
-          f"{quiver_launches} | cns fastq vs the CPU run: sequences equal, "
-          f"{n_qv} per-base QVs differ (by at most 1)", flush=True)
+          f"{quiver_launches} | 3-unzip and 4-polish equal to the JAX "
+          f"package's digests, {n_qv} consensus QVs differ (by at most 1)",
+          flush=True)
     return d
-
-
-def _fastq_records(path) -> list:
-    with open(path) as fh:
-        lines = fh.read().splitlines()
-    return list(zip(lines[1::4], lines[3::4]))
-
-
-def _fastq_vs_cpu(d) -> int:
-    """4-polish again with the plain torch versions on the CPU (whose
-    outputs equal the JAX package's, tests/test_torch_polish.py) over the
-    same 3-unzip/; the card's cns_*.fastq must carry the same sequences
-    and QVs within 1.  Returns the number of QVs that differ."""
-    from falcon_unzip_tpu_torch.cli import main as cli_main
-    cpu = os.path.join(d, "cpu")
-    shutil.copytree(f"{d}/out/3-unzip", f"{cpu}/out/3-unzip")
-    with open(f"{d}/run.json") as fh:
-        run = json.load(fh)
-    run["out_dir"] = f"{cpu}/out"
-    with open(f"{cpu}/run.json", "w") as fh:
-        json.dump(run, fh)
-    if cli_main(["quiver", f"{cpu}/run.json", "--device", "cpu"]) != 0:
-        _fail("quiver on the CPU exited non-zero")
-    return _fastq_qv_diffs(f"{d}/out", f"{cpu}/out")
-
-
-def _fastq_qv_diffs(card_out, cpu_out) -> int:
-    """cns_*.fastq of a card run against a CPU run: the same sequences
-    and QVs within 1 (a difference fails).  Returns the number of QVs
-    that differ."""
-    n_diff = 0
-    for stem in ("cns_p_ctg", "cns_h_ctg"):
-        card = _fastq_records(f"{card_out}/4-polish/{stem}.fastq")
-        host = _fastq_records(f"{cpu_out}/4-polish/{stem}.fastq")
-        if [r[0] for r in card] != [r[0] for r in host]:
-            _fail(f"{stem}.fastq: card and CPU sequences differ")
-        for (_, qa), (_, qb) in zip(card, host):
-            diff = [abs(ord(a) - ord(b)) for a, b in zip(qa, qb)]
-            if diff and max(diff) > 1:
-                _fail(f"{stem}.fastq: a QV differs by {max(diff)}")
-            n_diff += sum(1 for x in diff if x)
-    return n_diff
 
 
 # Phase 3e: band widths off the main path's 128 / 256 / 512.  The
@@ -826,188 +779,212 @@ def _fastq_qv_diffs(card_out, cpu_out) -> int:
 # likewise; the golden fixture at two band configurations.
 WIDTHS = (2, 16, 33, 48, 96, 200, 384, 640, 768, 1024, 2048, 4096)
 HMM_WIDTHS = (16, 48, 96, 200, 384, 1024)
-BAND_CONFIGS = (("align384_overlap200",
-                 {"align": {"band": 384}, "overlap": {"band": 200}}),
-                ("align768", {"align": {"band": 768}}))
-# 3-unzip and 4-polish of the port on the CPU, run beside the card's checks
-# (one thread each: the plain versions checked on the card meanwhile are
-# bound by the host's launches)
-_CPU_RUN = """
-import sys
-import torch
-torch.set_num_threads(1)
-from falcon_unzip_tpu_torch.cli import main
-for cmd in ("unzip", "quiver"):
-    if main([cmd, sys.argv[1], "--device", "cpu"]) != 0:
-        sys.exit(f"{cmd} exited non-zero")
-"""
 
 
 def phase_widths(torch, np) -> dict:
     """Phase 3e: the band kernels at widths the main path does not run,
     each against its plain version on the card, and the golden fixture at
     [align] band 384 / [overlap] band 200 and at [align] band 768 through
-    the command line on cuda against the port's CPU run of the same
-    config.  Returns each width's wavefront entry for the kernels line."""
+    the command line on cuda against the JAX package's digests.  Returns
+    each width's check for the kernels line."""
     from falcon_unzip_tpu_torch.scripts.common import time_ms
     from falcon_unzip_tpu_torch import bench
     from falcon_unzip_tpu_torch.ops import banded_align as ba
     from falcon_unzip_tpu_torch.ops import _kernels
     from falcon_unzip_tpu_torch.ops import pairhmm as ph
     from falcon_unzip_tpu_torch.utils import hmm_batches as hb
-    from falcon_unzip_tpu_torch.utils.fixtures import run_artifacts
+    from falcon_unzip_tpu_torch.utils import knob_configs as kc
     t_phase = time.perf_counter()
-    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(2026)
+    res = {"cases": {}}
+    for W in WIDTHS:
+        built = _kernels.layout_width("banded_wavefront", W)
+        # timed at P = 64 in bucket 1024 (a 4096-wide band is wider than
+        # that bucket's rows, prepare_batch's in both packages: 2048) and
+        # held against the plain versions, whose time is their host's
+        # launches a step, on every fourth pair of the batch (8 exact, 8
+        # at 15%); a band up to 256 wide on 16 pairs of bucket 256, whose
+        # 129-256 query rows it still slides over
+        bq = 1024 if W <= 2048 else 2048
+        for mode in ("global", "qglocal", "tglocal"):
+            qs, ts = _pairs(rng, 64, bq, mode)
+            r = _align_case(torch, np, W, mode, bq, qs, ts, "", 64,
+                            plain=False)
+            cq = 256 if W <= 256 else bq
+            if cq == bq:
+                qs, ts = qs[::4], ts[::4]
+            else:
+                qs, ts = _pairs(rng, 16, cq, mode)
+            c = res["cases"][(W, mode)] = _align_case(
+                torch, np, W, mode, cq, qs, ts, " check", 16)
+            print(f"[3e widths] layout {built} | "
+                  f"{_align_line(W, mode, bq, '', 64, r)} | held against "
+                  f"the plain versions on "
+                  f"{'every fourth pair' if cq == bq else '16 pairs'} "
+                  f"(bq={cq} bt={c['bt']} Dmax={c['Dmax']}): "
+                  f"finite={c['finite']}/16, {c['n_moves']} moves exact, "
+                  f"plain wavefront {c['wf_plain_ms']:.1f} ms, traceback "
+                  f"{c['tb_plain_ms']:.1f} ms", flush=True)
+    # a ragged width on phase 3's short and unalignable batches
+    for mode, make, tag in (
+            ("global", _short_pairs, " short pairs"),
+            ("tglocal", _short_pairs, " short pairs"),
+            ("qglocal", _unalignable_pairs, " unalignable pairs"),
+            ("tglocal", _unalignable_pairs, " unalignable pairs")):
+        qs, ts = make(rng, 256, 2048, mode)
+        r = res["cases"][(200, mode, tag)] = _align_case(
+            torch, np, 200, mode, 2048, qs, ts, tag, 256)
+        print(f"[3e widths] W=200 {mode} bq=2048 Dmax={r['Dmax']}{tag}: "
+              f"finite={r['finite']}/256, {r['n_moves']} moves exact",
+              flush=True)
+    # the pair-HMM forward: timed at the bench shape of phase 3 (P =
+    # 256, 512 bp windows), then on every edge batch
+    pvec = ph.params_vector()
+    P, WIN = 256, 512
+    q, n, t, m = _windows(np, rng, P, WIN, (400, 501))
+    worst = 0.0
+    for W in HMM_WIDTHS:
+        qg, trg, G = ba.prepare_batch(q, t, W)
+        Dmax, lo = ba.build_schedule(WIN, WIN, W)
+        args = (torch.from_numpy(qg).to("cuda"),
+                torch.from_numpy(trg).to("cuda"),
+                torch.from_numpy(n).to("cuda"),
+                torch.from_numpy(m).to("cuda"), lo, pvec)
+        kw = dict(W=W, Lt=WIN, G=G)
+        k = ph.pairhmm_forward(*args, **kw)
+        t0 = time.perf_counter()
+        p = ph.pairhmm_forward_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        rel = hb.max_rel_err(k, p)
+        if not rel <= 1e-3 or not bool((k[p < -1e29] == -1e30).all()):
+            _fail(f"pairhmm W={W} P={P}: rel err {rel} over the bar, or "
+                  "an out-of-band pair not exactly NEG")
+        ms = time_ms(lambda: ph.pairhmm_forward(*args, **kw), 3)
+        work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
+                                  LTG=trg.shape[1])
+        bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
+        for kind in hb.EDGE_KINDS:
+            b = hb.edge_batch(kind, W)
+            a_e, kw_e = hb.to_device(b, W, pvec, "cuda")
+            k_e = ph.pairhmm_forward(*a_e, **kw_e)
+            p_e = ph.pairhmm_forward_plain(*a_e, **kw_e)
+            rel_e = hb.max_rel_err(k_e, p_e)
+            if not rel_e <= 1e-3 or \
+                    not bool((k_e[p_e < -1e29] == -1e30).all()):
+                _fail(f"pairhmm edge batch {kind} W={W}: rel err {rel_e} "
+                      "over the bar, or an out-of-band pair not exactly "
+                      "NEG")
+            worst = max(worst, rel_e)
+        print(f"[3e widths] pairhmm_forward W={W} layout "
+              f"{_kernels.layout_width('pairhmm_forward', W)} "
+              f"({_kernels.pairhmm_cells(W, P)} cells a lane) P={P} "
+              f"win={WIN} | max rel err {rel:.3g}, edge batches "
+              f"{len(hb.EDGE_KINDS)} kinds within the bar | kernel "
+              f"{ms:.3f} ms (plain {plain_ms:.1f} ms) | bound "
+              f"{bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
+              flush=True)
+    print(f"[3e widths] pairhmm_forward edge batches at W = "
+          f"{'/'.join(map(str, HMM_WIDTHS))}: max rel err {worst:.3g} "
+          "(bar 1e-3), out-of-band pairs exactly NEG", flush=True)
+    # the golden fixture at each band configuration on cuda against the
+    # JAX package's digests, the band widths of its wavefront launches
+    # recorded
     tmp = tempfile.mkdtemp(prefix="chip_smoke_widths_")
-    procs = []
     try:
-        # the CPU runs first, in processes of their own, while the card
-        # works through the kernels
-        for name, sections in BAND_CONFIGS:
-            for where in ("host", "card"):
-                _golden_fixture(f"{tmp}/{name}/{where}", sections)
-            d = f"{tmp}/{name}/host"
-            log = open(f"{d}/run.log", "w")
-            procs.append((name, log, subprocess.Popen(
-                [sys.executable, "-c", _CPU_RUN, f"{d}/run.json"], cwd=here,
-                stdout=log, stderr=subprocess.STDOUT)))
-        rng = np.random.default_rng(2026)
-        res = {"cases": {}}
-        for W in WIDTHS:
-            built = _kernels.layout_width("banded_wavefront", W)
-            # a 4096-wide band is wider than the guarded rows of bucket
-            # 1024 (prepare_batch's, in both packages): the next bucket
-            bq = 1024 if W <= 2048 else 2048
-            for mode in ("global", "qglocal", "tglocal"):
-                qs, ts = _pairs(rng, 64, bq, mode)
-                r = res["cases"][(W, mode)] = _align_case(
-                    torch, np, W, mode, bq, qs, ts, "", 64)
-                print(f"[3e widths] layout {built} | "
-                      f"{_align_line(W, mode, bq, '', 64, r)}", flush=True)
-        # a ragged width on phase 3's short and unalignable batches
-        for mode, make, tag in (
-                ("global", _short_pairs, " short pairs"),
-                ("tglocal", _short_pairs, " short pairs"),
-                ("qglocal", _unalignable_pairs, " unalignable pairs"),
-                ("tglocal", _unalignable_pairs, " unalignable pairs")):
-            qs, ts = make(rng, 256, 2048, mode)
-            r = res["cases"][(200, mode, tag)] = _align_case(
-                torch, np, 200, mode, 2048, qs, ts, tag, 256)
-            print(f"[3e widths] W=200 {mode} bq=2048 Dmax={r['Dmax']}{tag}: "
-                  f"finite={r['finite']}/256, {r['n_moves']} moves exact",
-                  flush=True)
-        # the pair-HMM forward: timed at the bench shape of phase 3 (P =
-        # 256, 512 bp windows), then on every edge batch
-        pvec = ph.params_vector()
-        P, WIN = 256, 512
-        q, n, t, m = _windows(np, rng, P, WIN, (400, 501))
-        worst = 0.0
-        for W in HMM_WIDTHS:
-            qg, trg, G = ba.prepare_batch(q, t, W)
-            Dmax, lo = ba.build_schedule(WIN, WIN, W)
-            args = (torch.from_numpy(qg).to("cuda"),
-                    torch.from_numpy(trg).to("cuda"),
-                    torch.from_numpy(n).to("cuda"),
-                    torch.from_numpy(m).to("cuda"), lo, pvec)
-            kw = dict(W=W, Lt=WIN, G=G)
-            k = ph.pairhmm_forward(*args, **kw)
-            t0 = time.perf_counter()
-            p = ph.pairhmm_forward_plain(*args, **kw)
-            torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
-            rel = hb.max_rel_err(k, p)
-            if not rel <= 1e-3 or not bool((k[p < -1e29] == -1e30).all()):
-                _fail(f"pairhmm W={W} P={P}: rel err {rel} over the bar, or "
-                      "an out-of-band pair not exactly NEG")
-            ms = time_ms(lambda: ph.pairhmm_forward(*args, **kw), 3)
-            work = bench.pairhmm_work(n, m, Dmax=Dmax, W=W, LQG=qg.shape[1],
-                                      LTG=trg.shape[1])
-            bound = bench.bound_ms(work["ops"], work["bytes"], work["peak"])[0]
-            for kind in hb.EDGE_KINDS:
-                b = hb.edge_batch(kind, W)
-                a_e, kw_e = hb.to_device(b, W, pvec, "cuda")
-                k_e = ph.pairhmm_forward(*a_e, **kw_e)
-                p_e = ph.pairhmm_forward_plain(*a_e, **kw_e)
-                rel_e = hb.max_rel_err(k_e, p_e)
-                if not rel_e <= 1e-3 or \
-                        not bool((k_e[p_e < -1e29] == -1e30).all()):
-                    _fail(f"pairhmm edge batch {kind} W={W}: rel err {rel_e} "
-                          "over the bar, or an out-of-band pair not exactly "
-                          "NEG")
-                worst = max(worst, rel_e)
-            print(f"[3e widths] pairhmm_forward W={W} layout "
-                  f"{_kernels.layout_width('pairhmm_forward', W)} "
-                  f"({_kernels.pairhmm_cells(W, P)} cells a lane) P={P} "
-                  f"win={WIN} | max rel err {rel:.3g}, edge batches "
-                  f"{len(hb.EDGE_KINDS)} kinds within the bar | kernel "
-                  f"{ms:.3f} ms (plain {plain_ms:.1f} ms) | bound "
-                  f"{bound:.4f} ms, SFU floor {work['sfu_ms']:.4f} ms",
-                  flush=True)
-        print(f"[3e widths] pairhmm_forward edge batches at W = "
-              f"{'/'.join(map(str, HMM_WIDTHS))}: max rel err {worst:.3g} "
-              "(bar 1e-3), out-of-band pairs exactly NEG", flush=True)
-        # the golden fixture at each band configuration on cuda, the band
-        # widths of its wavefront launches recorded
-        seen_w = set()
-        launch = _kernels.banded_wavefront
-
-        def spy_wavefront(*a, **kw):
-            seen_w.add(kw["W"])
-            return launch(*a, **kw)
-        for name, sections in BAND_CONFIGS:
-            d = f"{tmp}/{name}/card"
-            seen_w.clear()
-            _kernels.banded_wavefront = spy_wavefront
-            try:
-                _kernels.reset_counts()
-                t0 = time.perf_counter()
-                _cli(d, "unzip")
-                _cli(d, "quiver")
-                card_s = time.perf_counter() - t0
-            finally:
-                _kernels.banded_wavefront = launch
-            launches = _launches((_kernels.WAVEFRONT, _kernels.TRACEBACK))
+        kc.write_inputs(f"{tmp}/in")
+        for g in kc.BAND_GROUPS:
+            with kc.launch_log() as log:
+                r = _knob_run(g, f"{tmp}/in", f"{tmp}/{g.name}", None)
+            sections = g.sections
             want_w = {sections["align"]["band"],
                       sections.get("overlap", {}).get("band", 256),
                       max(512, sections["align"]["band"])}
-            if not want_w <= seen_w or min(launches.values()) <= 0:
-                _fail(f"golden {name}: wavefront widths {sorted(seen_w)}, "
-                      f"want {sorted(want_w)}; launches {launches}")
-            res[name] = {"card_s": card_s, "widths": sorted(seen_w),
-                         "launches": launches}
-        for name, log, proc in procs:
-            rc = proc.wait()
-            log.close()
-            d = f"{tmp}/{name}"
-            if rc != 0:
-                with open(f"{d}/host/run.log") as fh:
-                    tail = fh.read()[-2000:]
-                _fail(f"golden {name}: the CPU run exited {rc}\n{tail}")
-            card = run_artifacts(f"{d}/card/out", ("3-unzip/**/*",
-                                                   "4-polish/cns_*.fasta"))
-            host = run_artifacts(f"{d}/host/out", ("3-unzip/**/*",
-                                                  "4-polish/cns_*.fasta"))
-            if card != host:
-                diff = sorted(k for k in set(card) | set(host)
-                              if card.get(k) != host.get(k))
-                _fail(f"golden {name}: card and CPU differ in {diff}")
-            n_qv = _fastq_qv_diffs(f"{d}/card/out", f"{d}/host/out")
-            r = res[name]
-            print(f"[3e widths] golden {name} on cuda in {r['card_s']:.1f} s:"
-                  f" wavefront widths {r['widths']}, launches "
-                  f"{r['launches']} | {len(card)} 3-unzip and cns fasta files"
-                  f" byte-identical to the CPU run, cns fastq sequences "
-                  f"equal, {n_qv} QVs differ (by at most 1)", flush=True)
+            seen_w = {w for _, w in log["wavefront"]}
+            if not want_w <= seen_w or min(
+                    r["launches"][k] for k in ("banded_wavefront",
+                                               "traceback")) <= 0:
+                _fail(f"golden {g.name}: wavefront widths {sorted(seen_w)}, "
+                      f"want {sorted(want_w)}; launches {r['launches']}")
+            print(f"[3e widths] golden {g.name} on cuda in "
+                  f"{sum(r['seconds'].values()):.1f} s: wavefront widths "
+                  f"{sorted(seen_w)}, launches {r['launches']} | 3-unzip "
+                  f"and 4-polish equal to the JAX package's digests, "
+                  f"{r['qv_diffs']} consensus QVs differ (by at most 1)",
+                  flush=True)
     finally:
-        for _, log, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[3e widths] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return res
+
+
+def _knob_run(group, inputs, d, default_out) -> dict:
+    """One group of utils/knob_configs.py through the port's command line
+    on cuda, each stage's artifacts held to the JAX package's digest (the
+    consensus QVs within 1).  Returns the stages' seconds, the kernels'
+    launches and the number of QVs that differ."""
+    from falcon_unzip_tpu_torch.ops import _kernels
+    from falcon_unzip_tpu_torch.utils import knob_configs as kc
+    out = f"{d}/out"
+    if group.stages[0] == "quiver":
+        kc.seed_unzip(group, default_out, out)
+    os.makedirs(d, exist_ok=True)
+    with open(f"{d}/run.json", "w") as fh:
+        json.dump(kc.run_config(group, inputs, out), fh)
+    _kernels.reset_counts()
+    seconds = {}
+    for stage in group.stages:
+        t0 = time.perf_counter()
+        _cli(d, stage)
+        seconds[stage] = time.perf_counter() - t0
+    launches = _launches((_kernels.WAVEFRONT, _kernels.TRACEBACK,
+                          _kernels.ARROW))
+    n_qv = 0
+    for stage in group.stages:
+        try:
+            n_qv += kc.check(group.name, stage, out)
+        except ValueError as e:
+            _fail(f"{group.name} on cuda: {e}")
+    return {"seconds": seconds, "launches": launches, "qv_diffs": n_qv}
+
+
+def phase_knobs(golden_dir) -> None:
+    """Phase 4k: every knob group of utils/knob_configs.py through the
+    port's command line on cuda, each stage's artifacts against the JAX
+    package's digest; the 4-polish-only groups start from phase 4's
+    3-unzip.  Each group's line: its stages' seconds, its launches, the
+    wavefront's P and the Arrow sweeps' builds (warps a block, C, tier
+    mode)."""
+    from falcon_unzip_tpu_torch.utils import knob_configs as kc
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_knobs_")
+    try:
+        for g in kc.GROUPS:
+            if g.name == "default":
+                continue
+            with kc.launch_log() as log:
+                r = _knob_run(g, golden_dir, f"{tmp}/{g.name}",
+                              f"{golden_dir}/out")
+            missed = kc.missed_build(g.name, log)
+            if missed:
+                _fail(missed)
+            arrow = log["arrow"]
+            wf_p = sorted({p for p, _ in log["wavefront"]})
+            builds = sorted({(p, w, c, lj) for p, w, c, lj, _ in arrow})
+            tiers = any(t for *_, t in arrow)
+            secs = ", ".join(f"{stage} {v:.2f} s"
+                             for stage, v in r["seconds"].items())
+            print(f"[4k knobs] {g.name} ({g.kind}, {g.inputs}) {secs} | "
+                  f"launches {r['launches']} | wavefront P {wf_p} | Arrow "
+                  f"{len(arrow)} launches, (P, warps, C, LJ) {builds}, "
+                  f"per-base tiers {'yes' if tiers else 'no'} | equal to "
+                  f"the JAX package's digests, {r['qv_diffs']} consensus "
+                  f"QVs differ (by at most 1)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[4k knobs] {len(kc.GROUPS)} runs; the default's is phase 4's "
+          f"| phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 class _PlainScorer:
@@ -2079,6 +2056,7 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         golden_dir = phase_golden(tmp)
+        phase_knobs(golden_dir)
         reforward = phase_reforward(torch, np, golden_dir)
         phase_cli(np, golden_dir)
         main_run = phase_main(torch, tmp, args.genome_bp)
