@@ -18,6 +18,7 @@ from ..device import resolve
 from ..ops.banded_align import BandedAligner, anchor_trim, moves_to_tags_vec
 from ..ops.kmer_index import KmerIndex, seed_batch, seed_read
 from ..seq import PAD, SeqBatch, revcomp
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -197,7 +198,6 @@ class ReadToContigAligner:
         never changes record values, and the canonical sort makes order
         shard-invariant.
         """
-        import time as _time
         cfg = self.cfg
         tm = {"seed_s": 0.0, "jobs_s": 0.0, "pack_s": 0.0,
               "dispatch_s": 0.0, "fetch_s": 0.0, "post_s": 0.0}
@@ -222,44 +222,18 @@ class ReadToContigAligner:
         #    whole batch when a single placement per read is kept; the
         #    per-read seed_read loop serves max_hits_per_read > 1)
         jobs = []  # (read_id, strand, ctg, win_lo, win_hi, q_off, q_len)
-        _t0 = _time.perf_counter()
         if cfg.max_hits_per_read == 1:
-            strand, ctg_a, score, d_min, d_max = seed_batch(
-                self.index, seqs, min_anchors=cfg.min_anchors)
-            tm["seed_s"] = _time.perf_counter() - _t0
-            _t0 = _time.perf_counter()
-            for rid in np.nonzero(score >= 0)[0]:
-                L = int(rlen[rid])
-                t_len = len(self.contigs[ctg_a[rid]])
-                d0, d1 = int(d_min[rid]), int(d_max[rid])
-                # clip_query_overhang on pool spans (same arithmetic)
-                q_lo = max(0, -d0 - cfg.window_pad)
-                q_hi = max(0, d1 + L - t_len - cfg.window_pad)
-                qn = L - q_lo - q_hi
-                if qn < cfg.k:
-                    continue
-                lo = max(0, d0 + q_lo - cfg.window_pad)
-                hi = min(t_len,
-                         d1 + q_lo + qn + cfg.k + cfg.window_pad)
-                if hi - lo < cfg.k:
-                    continue
-                q_off = (roff[rid] if strand[rid] == 0
-                         else nf + roff[rid]) + q_lo
-                jobs.append((int(rid) + r_lo, int(strand[rid]),
-                             int(ctg_a[rid]), lo, hi, int(q_off), qn))
-        else:
-            for rid in range(r_lo, r_hi):
-                r = seqs[rid - r_lo]
-                if len(r) < cfg.k:
-                    continue
-                hits = seed_read(self.index, r,
-                                 min_anchors=cfg.min_anchors,
-                                 max_hits_per_read=cfg.max_hits_per_read)
-                for h in hits[: cfg.max_hits_per_read]:
-                    L = len(r)
-                    t_len = len(self.contigs[h.ctg])
-                    d0 = h.t_lo
-                    d1 = h.t_hi - L - cfg.k
+            with span("align.seed") as sp:
+                strand, ctg_a, score, d_min, d_max = seed_batch(
+                    self.index, seqs, min_anchors=cfg.min_anchors)
+            tm["seed_s"] = sp.s
+        with span("align.jobs") as sp:
+            if cfg.max_hits_per_read == 1:
+                for rid in np.nonzero(score >= 0)[0]:
+                    L = int(rlen[rid])
+                    t_len = len(self.contigs[ctg_a[rid]])
+                    d0, d1 = int(d_min[rid]), int(d_max[rid])
+                    # clip_query_overhang on pool spans (same arithmetic)
                     q_lo = max(0, -d0 - cfg.window_pad)
                     q_hi = max(0, d1 + L - t_len - cfg.window_pad)
                     qn = L - q_lo - q_hi
@@ -270,11 +244,38 @@ class ReadToContigAligner:
                              d1 + q_lo + qn + cfg.k + cfg.window_pad)
                     if hi - lo < cfg.k:
                         continue
-                    q_off = (roff[rid - r_lo] if h.strand == 0
-                             else nf + roff[rid - r_lo]) + q_lo
-                    jobs.append((rid, h.strand, h.ctg, lo, hi,
-                                 int(q_off), qn))
-        tm["jobs_s"] = _time.perf_counter() - _t0
+                    q_off = (roff[rid] if strand[rid] == 0
+                             else nf + roff[rid]) + q_lo
+                    jobs.append((int(rid) + r_lo, int(strand[rid]),
+                                 int(ctg_a[rid]), lo, hi, int(q_off), qn))
+            else:
+                for rid in range(r_lo, r_hi):
+                    r = seqs[rid - r_lo]
+                    if len(r) < cfg.k:
+                        continue
+                    hits = seed_read(self.index, r,
+                                     min_anchors=cfg.min_anchors,
+                                     max_hits_per_read=cfg.max_hits_per_read)
+                    for h in hits[: cfg.max_hits_per_read]:
+                        L = len(r)
+                        t_len = len(self.contigs[h.ctg])
+                        d0 = h.t_lo
+                        d1 = h.t_hi - L - cfg.k
+                        q_lo = max(0, -d0 - cfg.window_pad)
+                        q_hi = max(0, d1 + L - t_len - cfg.window_pad)
+                        qn = L - q_lo - q_hi
+                        if qn < cfg.k:
+                            continue
+                        lo = max(0, d0 + q_lo - cfg.window_pad)
+                        hi = min(t_len,
+                                 d1 + q_lo + qn + cfg.k + cfg.window_pad)
+                        if hi - lo < cfg.k:
+                            continue
+                        q_off = (roff[rid - r_lo] if h.strand == 0
+                                 else nf + roff[rid - r_lo]) + q_lo
+                        jobs.append((rid, h.strand, h.ctg, lo, hi,
+                                     int(q_off), qn))
+        tm["jobs_s"] = sp.s
 
         # 2) bucket jobs by padded shapes and run the device DP.  The
         # target bucket tracks the query bucket (bt = bq + step*j), since
@@ -305,44 +306,44 @@ class ReadToContigAligner:
 
         def _drain_one():
             chunk, n_real, handle = pending.pop(0)
-            _tp = _time.perf_counter()
-            res = aligner.collect(handle)
-            tm["fetch_s"] += _time.perf_counter() - _tp
-            _tp = _time.perf_counter()
-            for pi, ji in enumerate(chunk[:n_real]):
-                rid, strand, ctg, lo, hi, q_off, qn = jobs[ji]
-                q = qpool[q_off : q_off + qn]
-                # anchor both alignment ends on exact k-runs: smeared
-                # free-end tails (query overhang / read-end errors)
-                # emit no tags and no edits
-                cl = anchor_trim(q, self.contigs[ctg][lo:hi],
-                                 res["moves"][pi],
-                                 int(res["end_j"][pi]),
-                                 k=cfg.anchor_k)
-                if cl is None:
-                    continue
-                start_j, end_j = cl["start_j"], cl["end_j"]
-                dist = cl["dist"]
-                span = max(end_j - start_j, 1)
-                if 1.0 - dist / span < cfg.min_identity:
-                    continue
-                tags = moves_to_tags_vec(cl["q"], cl["moves"],
-                                         t_offset=lo + start_j)
-                out["read_id"].append(rid)
-                out["ctg"].append(ctg)
-                out["strand"].append(strand)
-                out["t_start"].append(lo + start_j)
-                out["t_end"].append(lo + end_j)
-                out["q_len"].append(qn)
-                out["dist"].append(dist)
-                # aligned-orientation read offset of the first kept
-                # base: overhang clip (q_off rel. to the read's pool
-                # row) + anchor trim
-                out["q_start"].append(
-                    q_off - int(roff[rid - r_lo])
-                    - (nf if strand else 0) + cl["q0"])
-                tags_out.append(tags)
-            tm["post_s"] += _time.perf_counter() - _tp
+            with span("align.fetch") as sp:
+                res = aligner.collect(handle)
+            tm["fetch_s"] += sp.s
+            with span("align.post") as sp:
+                for pi, ji in enumerate(chunk[:n_real]):
+                    rid, strand, ctg, lo, hi, q_off, qn = jobs[ji]
+                    q = qpool[q_off : q_off + qn]
+                    # anchor both alignment ends on exact k-runs: smeared
+                    # free-end tails (query overhang / read-end errors)
+                    # emit no tags and no edits
+                    cl = anchor_trim(q, self.contigs[ctg][lo:hi],
+                                     res["moves"][pi],
+                                     int(res["end_j"][pi]),
+                                     k=cfg.anchor_k)
+                    if cl is None:
+                        continue
+                    start_j, end_j = cl["start_j"], cl["end_j"]
+                    dist = cl["dist"]
+                    width = max(end_j - start_j, 1)
+                    if 1.0 - dist / width < cfg.min_identity:
+                        continue
+                    tags = moves_to_tags_vec(cl["q"], cl["moves"],
+                                             t_offset=lo + start_j)
+                    out["read_id"].append(rid)
+                    out["ctg"].append(ctg)
+                    out["strand"].append(strand)
+                    out["t_start"].append(lo + start_j)
+                    out["t_end"].append(lo + end_j)
+                    out["q_len"].append(qn)
+                    out["dist"].append(dist)
+                    # aligned-orientation read offset of the first kept
+                    # base: overhang clip (q_off rel. to the read's pool
+                    # row) + anchor trim
+                    out["q_start"].append(
+                        q_off - int(roff[rid - r_lo])
+                        - (nf if strand else 0) + cl["q0"])
+                    tags_out.append(tags)
+            tm["post_s"] += sp.s
         chunk_pairs = cfg.batch_pairs
         for (bq, bt), jidx in sorted(buckets.items()):
             for s in range(0, len(jidx), chunk_pairs):
@@ -354,18 +355,18 @@ class ReadToContigAligner:
                     chunk = chunk + [chunk[-1]] * (chunk_pairs - n_real)
                 P = len(chunk)
                 idx = np.asarray(chunk)
-                _tp = _time.perf_counter()
-                qa = _gather_rows(qpool, j_qoff[idx], j_qn[idx], P, bq)
-                ta = _gather_rows(self._ctg_pool,
-                                  ctg_starts[j_ctg[idx]] + j_lo[idx],
-                                  j_hi[idx] - j_lo[idx], P, bt)
-                tm["pack_s"] += _time.perf_counter() - _tp
-                _tp = _time.perf_counter()
-                pending.append((chunk, n_real, aligner.dispatch(
-                    qa, ta, j_qn[idx].astype(np.int32),
-                    (j_hi[idx] - j_lo[idx]).astype(np.int32),
-                    want_moves=True)))
-                tm["dispatch_s"] += _time.perf_counter() - _tp
+                with span("align.pack") as sp:
+                    qa = _gather_rows(qpool, j_qoff[idx], j_qn[idx], P, bq)
+                    ta = _gather_rows(self._ctg_pool,
+                                      ctg_starts[j_ctg[idx]] + j_lo[idx],
+                                      j_hi[idx] - j_lo[idx], P, bt)
+                tm["pack_s"] += sp.s
+                with span("align.dispatch") as sp:
+                    pending.append((chunk, n_real, aligner.dispatch(
+                        qa, ta, j_qn[idx].astype(np.int32),
+                        (j_hi[idx] - j_lo[idx]).astype(np.int32),
+                        want_moves=True)))
+                tm["dispatch_s"] += sp.s
                 if len(pending) >= max_inflight:
                     _drain_one()
         while pending:

@@ -25,6 +25,7 @@ from ..device import resolve
 from ..ops.banded_align import BandedAligner
 from ..ops.kmer_index import KmerIndex, chain_best_per_pair, query_flat
 from ..seq import PAD, SeqBatch, revcomp
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -208,13 +209,11 @@ class PreadOverlapper:
         emission are whole-array numpy passes.  Stage wall-clocks land in
         ``self.timings``.
         """
-        import time as _time
         cfg = self.cfg
         tm: dict = {}
-        _t0 = _time.perf_counter()
-        a, b, strand, diag = self._candidates(a_range)
-        tm["cand_s"] = round(_time.perf_counter() - _t0, 2)
-        _t0 = _time.perf_counter()
+        with span("overlap.cand") as sp:
+            a, b, strand, diag = self._candidates(a_range)
+        tm["cand_s"] = round(sp.s, 2)
         aligner = BandedAligner(W=cfg.band, mode="tglocal",
                                 device=self.device)
 
@@ -276,10 +275,10 @@ class PreadOverlapper:
         def _drain():
             if not pending:
                 return
-            _td = _time.perf_counter()
-            parts.append(aligner.collect_summaries(
-                [h for _, _, h in pending]))
-            tm["fetch_s"] += _time.perf_counter() - _td
+            with span("overlap.fetch") as sp:
+                parts.append(aligner.collect_summaries(
+                    [h for _, _, h in pending]))
+            tm["fetch_s"] += sp.s
             meta.extend((idx, n) for idx, n, _ in pending)
             pending.clear()
 
@@ -298,15 +297,16 @@ class PreadOverlapper:
                     idx = np.concatenate(
                         [idx, np.full(chunk_pairs - n_real, idx[-1])])
                 P = len(idx)
-                _tp = _time.perf_counter()
-                qa = _gather_rows(pool, q_src[idx], ov[idx], P, gbq)
-                ta = _gather_rows(pool, t_src[idx], t_len[idx], P, gbt)
-                tm["pack_s"] += _time.perf_counter() - _tp
-                _tp = _time.perf_counter()
-                pending.append((idx, n_real, aligner.dispatch(
-                    qa, ta, ov[idx].astype(np.int32),
-                    t_len[idx].astype(np.int32), want_moves="summary")))
-                tm["dispatch_s"] += _time.perf_counter() - _tp
+                with span("overlap.pack") as sp:
+                    qa = _gather_rows(pool, q_src[idx], ov[idx], P, gbq)
+                    ta = _gather_rows(pool, t_src[idx], t_len[idx], P, gbt)
+                tm["pack_s"] += sp.s
+                with span("overlap.dispatch") as sp:
+                    pending.append((idx, n_real, aligner.dispatch(
+                        qa, ta, ov[idx].astype(np.int32),
+                        t_len[idx].astype(np.int32),
+                        want_moves="summary")))
+                tm["dispatch_s"] += sp.s
                 if len(pending) >= max_inflight:
                     _drain()
         _drain()
@@ -315,45 +315,46 @@ class PreadOverlapper:
                    for k in parts[0]} if len(parts) > 1 else parts[0])
 
         # ---- vectorized record emission ------------------------------
-        _t0 = _time.perf_counter()
-        live_l, rows_l = [], []
-        r0 = 0
-        for idx, n in meta:                 # rows: chunk-padded layout
-            live_l.append(idx[:n])
-            rows_l.append(np.arange(r0, r0 + n))
-            r0 += len(idx)
-        live = (np.concatenate(live_l) if live_l
-                else np.zeros(0, np.int64))
-        rows = (np.concatenate(rows_l) if rows_l
-                else np.zeros(0, np.int64))
-        dist = allres["dist"][rows].astype(np.int64)
-        end_j = allres["end_j"][rows].astype(np.int64)
-        start_j = end_j - allres["n_t"][rows]
-        # trim query insertions hanging off the target's ends (the q
-        # window may overshoot the true overlap): leading ups advance
-        # a_start, trailing ups retract a_end
-        lead = allres["lead"][rows].astype(np.int64)
-        trail = np.maximum(0, np.minimum(
-            allres["trail"][rows], allres["n_up"][rows] - lead))
-        a_s = a_lo[live] + lead
-        a_e = a_lo[live] + ov[live] - trail
-        dist = dist - lead - trail
-        span = a_e - a_s
-        ok = ((allres["dist"][rows] < (1 << 20))
-              & (span >= cfg.min_overlap)
-              & (1.0 - dist / np.maximum(span, 1) >= cfg.min_identity))
-        sel = live[ok]
-        out = OverlapSet(
-            a_id=a[sel].astype(np.int32), b_id=b[sel].astype(np.int32),
-            strand=strand[sel].astype(np.int8),
-            a_start=a_s[ok].astype(np.int32),
-            a_end=a_e[ok].astype(np.int32),
-            b_start=(t_lo[sel] + start_j[ok]).astype(np.int32),
-            b_end=(t_lo[sel] + end_j[ok]).astype(np.int32),
-            a_len=self.lengths[a[sel]].astype(np.int32),
-            b_len=self.lengths[b[sel]].astype(np.int32),
-            dist=dist[ok].astype(np.int32)).sort_canonical()
-        tm["emit_s"] = round(_time.perf_counter() - _t0, 2)
+        with span("overlap.emit") as sp:
+            live_l, rows_l = [], []
+            r0 = 0
+            for idx, n in meta:                 # rows: chunk-padded layout
+                live_l.append(idx[:n])
+                rows_l.append(np.arange(r0, r0 + n))
+                r0 += len(idx)
+            live = (np.concatenate(live_l) if live_l
+                    else np.zeros(0, np.int64))
+            rows = (np.concatenate(rows_l) if rows_l
+                    else np.zeros(0, np.int64))
+            dist = allres["dist"][rows].astype(np.int64)
+            end_j = allres["end_j"][rows].astype(np.int64)
+            start_j = end_j - allres["n_t"][rows]
+            # trim query insertions hanging off the target's ends (the q
+            # window may overshoot the true overlap): leading ups advance
+            # a_start, trailing ups retract a_end
+            lead = allres["lead"][rows].astype(np.int64)
+            trail = np.maximum(0, np.minimum(
+                allres["trail"][rows], allres["n_up"][rows] - lead))
+            a_s = a_lo[live] + lead
+            a_e = a_lo[live] + ov[live] - trail
+            dist = dist - lead - trail
+            width = a_e - a_s
+            ok = ((allres["dist"][rows] < (1 << 20))
+                  & (width >= cfg.min_overlap)
+                  & (1.0 - dist / np.maximum(width, 1)
+                     >= cfg.min_identity))
+            sel = live[ok]
+            out = OverlapSet(
+                a_id=a[sel].astype(np.int32), b_id=b[sel].astype(np.int32),
+                strand=strand[sel].astype(np.int8),
+                a_start=a_s[ok].astype(np.int32),
+                a_end=a_e[ok].astype(np.int32),
+                b_start=(t_lo[sel] + start_j[ok]).astype(np.int32),
+                b_end=(t_lo[sel] + end_j[ok]).astype(np.int32),
+                a_len=self.lengths[a[sel]].astype(np.int32),
+                b_len=self.lengths[b[sel]].astype(np.int32),
+                dist=dist[ok].astype(np.int32)).sort_canonical()
+        tm["emit_s"] = round(sp.s, 2)
         tm["pack_s"] = round(tm["pack_s"], 2)
         tm["dispatch_s"] = round(tm["dispatch_s"], 2)
         tm["n_cands"] = nj

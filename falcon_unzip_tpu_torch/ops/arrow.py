@@ -31,6 +31,7 @@ import torch
 from ..device import resolve
 from ..oracle.hmm import NEG, HMMParams
 from ..seq import PAD
+from ..utils.profiling import span
 from . import _kernels
 from .pairhmm import params_vector
 
@@ -338,43 +339,45 @@ class ArrowSplicer:
         per-pair int8/int32 tier-id arrays (len == len(qs[i])) selecting
         rows of the constructor's tier_params table per READ BASE.
         Returns (ll_cur (N,), ll_mut (N, C, 9))."""
-        N = len(qs)
-        C = self.C
-        cand = np.full((N, C), -1, np.int32)
-        if isinstance(cands, np.ndarray):
-            cand[:, :cands.shape[1]] = cands[:, :C]
-        else:
-            for i, cc in enumerate(cands):
-                cc = list(cc)[:C]
-                cand[i, :len(cc)] = cc
-        Lq, LJ = self._shapes(qs, ts)
-        chunk = self._pick_chunk(N)
-        # every chunk is launched before any result is fetched
-        use_tiers = qtiers is not None and self.tier_params is not None
-        pend = []
-        for lo in range(0, N, chunk):
-            hi = min(N, lo + chunk)
-            P = chunk                        # fixed: one compile per bucket
-            qa = np.full((P, Lq), PAD, np.int8)
-            ta = np.full((P, LJ), PAD, np.int8)
-            nn = np.zeros(P, np.int32)
-            mm = np.zeros(P, np.int32)
-            ca = np.full((P, C), -1, np.int32)
-            pv = np.tile(self.pvec1, (P, 1)).astype(np.float32)
-            qt = np.zeros((P, Lq + 1), np.int8) if use_tiers else None
-            for i in range(lo, hi):
-                q, t = qs[i], ts[i]
-                qa[i - lo, :len(q)] = q
-                ta[i - lo, :len(t)] = t
-                nn[i - lo] = len(q)
-                mm[i - lo] = len(t)
-                if use_tiers:
-                    qt[i - lo, :len(qtiers[i])] = qtiers[i]
-            ca[:hi - lo] = cand[lo:hi]
-            if pvecs is not None:
-                pv[:hi - lo] = pvecs[lo:hi]
-            pend.append(self._dispatch(qa, ta, nn, mm, ca, pv, Lq, LJ,
-                                       qt=qt))
-        cur_all = torch.cat([c for c, _ in pend]).cpu().numpy()
-        mut_all = torch.cat([m for _, m in pend]).cpu().numpy()
-        return cur_all[:N].copy(), mut_all[:N].copy()
+        with span("polish.arrow"):
+            N = len(qs)
+            C = self.C
+            cand = np.full((N, C), -1, np.int32)
+            if isinstance(cands, np.ndarray):
+                cand[:, :cands.shape[1]] = cands[:, :C]
+            else:
+                for i, cc in enumerate(cands):
+                    cc = list(cc)[:C]
+                    cand[i, :len(cc)] = cc
+            Lq, LJ = self._shapes(qs, ts)
+            chunk = self._pick_chunk(N)
+            # every chunk is launched before any result is fetched
+            use_tiers = qtiers is not None and self.tier_params is not None
+            pend = []
+            for lo in range(0, N, chunk):
+                hi = min(N, lo + chunk)
+                P = chunk                    # fixed: one compile per bucket
+                qa = np.full((P, Lq), PAD, np.int8)
+                ta = np.full((P, LJ), PAD, np.int8)
+                nn = np.zeros(P, np.int32)
+                mm = np.zeros(P, np.int32)
+                ca = np.full((P, C), -1, np.int32)
+                pv = np.tile(self.pvec1, (P, 1)).astype(np.float32)
+                qt = np.zeros((P, Lq + 1), np.int8) if use_tiers else None
+                for i in range(lo, hi):
+                    q, t = qs[i], ts[i]
+                    qa[i - lo, :len(q)] = q
+                    ta[i - lo, :len(t)] = t
+                    nn[i - lo] = len(q)
+                    mm[i - lo] = len(t)
+                    if use_tiers:
+                        qt[i - lo, :len(qtiers[i])] = qtiers[i]
+                ca[:hi - lo] = cand[lo:hi]
+                if pvecs is not None:
+                    pv[:hi - lo] = pvecs[lo:hi]
+                pend.append(self._dispatch(qa, ta, nn, mm, ca, pv, Lq, LJ,
+                                           qt=qt))
+            with span("polish.arrow.wait"):
+                cur_all = torch.cat([c for c, _ in pend]).cpu().numpy()
+                mut_all = torch.cat([m for _, m in pend]).cpu().numpy()
+            return cur_all[:N].copy(), mut_all[:N].copy()

@@ -522,6 +522,16 @@ class BandedAligner:
                 "lead": s[:, 3], "trail": s[:, 4], "n_up": s[:, 5],
                 "end_i": s[:, 6]}
 
+    @staticmethod
+    def wait(handle) -> None:
+        """Copy a ``dispatch`` handle's results to the host, which blocks
+        until its device work is done; ``collect`` then only unpacks."""
+        for key in ("summary", "combined"):
+            if handle[key] is not None:
+                handle[key] = handle[key].cpu()
+        if handle["res"] is not None:
+            handle["res"] = {k: v.cpu() for k, v in handle["res"].items()}
+
     def collect(self, handle) -> dict:
         """Materialize a ``dispatch`` handle as numpy (blocks)."""
         if handle["summary"] is not None:

@@ -14,7 +14,10 @@ so is each contig's vote tensor (``ShardedWindowVotes``).
 records go to their contig's owner host, each host polishes the contigs
 it owns, and host 0 gathers and writes the canonical ``cns_*`` files
 (3-unzip is read from ``cfg.out_dir`` on every host).  With
-``cfg.profile_dir`` set the whole run is traced (``utils.profiling``).
+``cfg.profile_dir`` set the whole run is traced (``utils.profiling``);
+while a profiler records, the run's host spans (the root ``run_quiver``,
+a ``stage.*`` span a Stage, ``align.*``, ``polish.*``) end
+``metrics.jsonl``, one row a span.
 
 Outputs (under <out>/4-polish/):
   cns_p_ctg.fasta / cns_p_ctg.fastq
@@ -26,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 
 import numpy as np
 
@@ -46,6 +48,7 @@ from ..parallel import distributed as dist
 from ..parallel.checkpoint import Stage
 from ..seq import decode
 from ..utils.metrics import MetricsLog, assembly_stats
+from ..utils.profiling import log_spans, span
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +68,14 @@ def run_quiver(cfg: PipelineConfig, device) -> dict:
 
 
 def _run_quiver(cfg: PipelineConfig, dev) -> dict:
+    with span("run_quiver"):
+        stats, metrics = _quiver(cfg, dev)
+    log_spans(metrics)
+    return stats
+
+
+def _quiver(cfg: PipelineConfig, dev) -> tuple:
+    """The run; returns (its stats, its MetricsLog)."""
     # ---- multi-host (see pipeline.unzip): canonical 3-unzip inputs are
     # always read from host 0's out_dir; non-primary hosts write scratch
     if cfg.mesh.debug_sharding:
@@ -124,33 +135,31 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
                               resume=cfg.resume)
                 if cfg.resume and probe.is_done() \
                         and os.path.exists(blob):
-                    _t0 = time.perf_counter()
-                    with open(blob, "rb") as fh:
+                    with span("align.reload") as sp, \
+                            open(blob, "rb") as fh:
                         _aln["a"] = AlnSet.from_bytes(fh.read())
-                    metrics.log("align_reload",
-                                s=round(time.perf_counter() - _t0, 2))
+                    metrics.log("align_reload", s=round(sp.s, 2))
                     return _aln["a"]
-            _t0 = time.perf_counter()
-            aligner = ReadToContigAligner(contigs, AlignerConfig(
-                k=cfg.align.k, band=cfg.align.band,
-                window_pad=cfg.align.window_pad,
-                min_identity=cfg.align.min_identity,
-                batch_pairs=cfg.align.batch_pairs), device=dev)
-            if multi:
-                # host-sharded raw-read alignment, then owner routing
-                # (see pipeline.unzip.get_aln)
-                local = aligner.align_batch(
-                    reads, read_range=dist.host_shard(len(reads)))
-                rec_owner = owners[local.ctg]
-                blobs = [local.subset(rec_owner == d).to_bytes()
-                         for d in range(n_hosts)]
-                _aln["a"] = AlnSet.merge(
-                    [AlnSet.from_bytes(b)
-                     for b in dist.exchange_to_owners(blobs)])
-            else:
-                _aln["a"] = aligner.align_batch(reads)
-            metrics.log("align_compute",
-                        s=round(time.perf_counter() - _t0, 2),
+            with span("align.compute") as sp:
+                aligner = ReadToContigAligner(contigs, AlignerConfig(
+                    k=cfg.align.k, band=cfg.align.band,
+                    window_pad=cfg.align.window_pad,
+                    min_identity=cfg.align.min_identity,
+                    batch_pairs=cfg.align.batch_pairs), device=dev)
+                if multi:
+                    # host-sharded raw-read alignment, then owner routing
+                    # (see pipeline.unzip.get_aln)
+                    local = aligner.align_batch(
+                        reads, read_range=dist.host_shard(len(reads)))
+                    rec_owner = owners[local.ctg]
+                    blobs = [local.subset(rec_owner == d).to_bytes()
+                             for d in range(n_hosts)]
+                    _aln["a"] = AlnSet.merge(
+                        [AlnSet.from_bytes(b)
+                         for b in dist.exchange_to_owners(blobs)])
+                else:
+                    _aln["a"] = aligner.align_batch(reads)
+            metrics.log("align_compute", s=round(sp.s, 2),
                         **aligner.timings)
         return _aln["a"]
 
@@ -178,7 +187,8 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
             os.replace(tmp, st.out("aln_set.msgpack"))
         return {"n_aligned": len(r2c)}
 
-    track_stage.run(_track)
+    with span("stage.1-track"):
+        track_stage.run(_track)
 
     # ---- stage 2: windowed polish (variantCaller/arrow role), resumable
     polish_stage = Stage(
@@ -251,50 +261,49 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
             # at the pileup level): records that oppose the primary's own
             # alleles at the het sites they span are masked, so each
             # phase block polishes to one consistent haplotype
-            _t0 = time.perf_counter()
-            ph_cfg = PhasingConfig(
-                min_depth=cfg.phase.min_depth,
-                min_allele_count=cfg.phase.min_allele_count,
-                allele_freq_min=cfg.phase.allele_freq_min,
-                biallelic_frac=cfg.phase.biallelic_frac,
-                max_span=cfg.phase.max_span, min_link=cfg.phase.min_link)
-            prim = [int(i) for i in my if int(i) < n_primary]
-            routed = template_route_votes(
-                aln, prim, [len(contigs[i]) for i in prim],
-                [contigs[i] for i in prim], ph_cfg, device=dev)
-            # opposite-phase records are MASKED, not dropped: their votes
-            # at het columns (and +-1 neighbors) are stripped and they sit
-            # out Arrow segment scoring, but they still vote everywhere
-            # else.  Masking works on a shallow copy: the cached AlnSet
-            # is shared, and replaced entries are fresh arrays.
-            aln = dataclasses.replace(aln, tags=list(aln.tags))
-            seg_excl = np.zeros(len(aln), bool)
-            n_drop = 0
-            for rec_idx, votes, het in routed:
-                bad = rec_idx[votes < 0]
-                n_drop += len(bad)
-                seg_excl[bad] = True
-                if not len(het) or not len(bad):
-                    continue
-                hs = np.sort(np.asarray(het))
-                for a in bad:
-                    t = aln.tags[a]
-                    if t is None or not len(t):
+            with span("polish.phase_route") as sp:
+                ph_cfg = PhasingConfig(
+                    min_depth=cfg.phase.min_depth,
+                    min_allele_count=cfg.phase.min_allele_count,
+                    allele_freq_min=cfg.phase.allele_freq_min,
+                    biallelic_frac=cfg.phase.biallelic_frac,
+                    max_span=cfg.phase.max_span, min_link=cfg.phase.min_link)
+                prim = [int(i) for i in my if int(i) < n_primary]
+                routed = template_route_votes(
+                    aln, prim, [len(contigs[i]) for i in prim],
+                    [contigs[i] for i in prim], ph_cfg, device=dev)
+                # opposite-phase records are MASKED, not dropped: their votes
+                # at het columns (and +-1 neighbors) are stripped and they sit
+                # out Arrow segment scoring, but they still vote everywhere
+                # else.  Masking works on a shallow copy: the cached AlnSet
+                # is shared, and replaced entries are fresh arrays.
+                aln = dataclasses.replace(aln, tags=list(aln.tags))
+                seg_excl = np.zeros(len(aln), bool)
+                n_drop = 0
+                for rec_idx, votes, het in routed:
+                    bad = rec_idx[votes < 0]
+                    n_drop += len(bad)
+                    seg_excl[bad] = True
+                    if not len(het) or not len(bad):
                         continue
-                    j = np.searchsorted(hs, t[:, 0])
-                    near = (np.abs(hs[np.clip(j, 0, len(hs) - 1)]
-                                   - t[:, 0]) <= 1)
-                    near |= (np.abs(hs[np.clip(j - 1, 0, len(hs) - 1)]
-                                    - t[:, 0]) <= 1)
-                    aln.tags[a] = t[~near]
+                    hs = np.sort(np.asarray(het))
+                    for a in bad:
+                        t = aln.tags[a]
+                        if t is None or not len(t):
+                            continue
+                        j = np.searchsorted(hs, t[:, 0])
+                        near = (np.abs(hs[np.clip(j, 0, len(hs) - 1)]
+                                       - t[:, 0]) <= 1)
+                        near |= (np.abs(hs[np.clip(j - 1, 0, len(hs) - 1)]
+                                        - t[:, 0]) <= 1)
+                        aln.tags[a] = t[~near]
             metrics.log("polish_phase_route", n_dropped=n_drop,
-                        s=round(time.perf_counter() - _t0, 2))
-        _t0 = time.perf_counter()
-        local_polished = polisher.polish_all(
-            [(names[int(i)], contigs[int(i)]) for i in my], aln,
-            ids=[int(i) for i in my], seg_exclude=seg_excl)
-        metrics.log("polish_windows",
-                    s=round(time.perf_counter() - _t0, 2))
+                        s=round(sp.s, 2))
+        with span("polish.windows") as sp:
+            local_polished = polisher.polish_all(
+                [(names[int(i)], contigs[int(i)]) for i in my], aln,
+                ids=[int(i) for i in my], seg_exclude=seg_excl)
+        metrics.log("polish_windows", s=round(sp.s, 2))
         if multi:
             # gather per-contig pieces to host 0 (canonical emitter)
             cols = {"idx": np.asarray(my, np.int64)}
@@ -327,13 +336,14 @@ def _run_quiver(cfg: PipelineConfig, dev) -> dict:
             if polished else 0.0,
         }
 
-    polish_stage.run(_polish)
+    with span("stage.2-polish"):
+        polish_stage.run(_polish)
     stats = polish_stage.metrics()
     metrics.log("polish", **stats)
     logger.info("polish done: %s", stats)
     if multi:
         dist.barrier("quiver-done")
-    return {**stats, "out_dir": out}
+    return {**stats, "out_dir": out}, metrics
 
 
 def _phase_route_mask(aln, ctg_ids: list[int], t_lens: list[int],

@@ -10,7 +10,10 @@ overlaps its shard of the preads, records are routed to their contig's
 owner host, each host phases the contigs it owns, and host 0 builds the
 graph and writes the canonical artifacts (the others write scratch
 under ``.host<k>/``).  With ``cfg.profile_dir`` set the whole run is
-traced (``utils.profiling``).
+traced (``utils.profiling``); while a profiler records, the run's host
+spans (``utils.profiling.span``: the root ``run_unzip``, a ``stage.*``
+span a Stage, ``align.*``, ``overlap.*`` on the prefetch's own thread,
+``hasm.*``) end ``metrics.jsonl``, one row a span.
 
 Outputs (under <out>/3-unzip/):
   all_p_ctg.fa, all_h_ctg.fa         — primary contigs + haplotigs
@@ -23,7 +26,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 
 import numpy as np
 
@@ -44,6 +46,7 @@ from ..parallel import distributed as dist
 from ..parallel.checkpoint import Stage
 from ..seq import SeqBatch, decode
 from ..utils.metrics import MetricsLog, assembly_stats, phase_block_stats
+from ..utils.profiling import log_spans, span
 
 logger = logging.getLogger(__name__)
 
@@ -62,6 +65,14 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
 
 
 def _run_unzip(cfg: PipelineConfig, dev) -> dict:
+    with span("run_unzip"):
+        stats, metrics = _unzip(cfg, dev)
+    log_spans(metrics)
+    return stats
+
+
+def _unzip(cfg: PipelineConfig, dev) -> tuple:
+    """The run; returns (its stats, its MetricsLog)."""
     cfg.validate()
     # ---- multi-host: host compute is replicated, the EXPENSIVE work
     # (alignment, overlap candidates) is host-sharded, and only host 0
@@ -96,29 +107,30 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         on host 0 only — the string graph is host-0 work — so other
         hosts return None.  Collective: every host must call."""
         if "ovl" not in overlaps_holder:
-            ov_cfg = OverlapperConfig(
-                k=cfg.overlap.k, band=cfg.overlap.band,
-                min_overlap=cfg.overlap.min_overlap,
-                min_identity=cfg.overlap.min_identity,
-                end_fuzz=cfg.overlap.end_fuzz)
-            overlapper = PreadOverlapper(preads, ov_cfg, device=dev)
-            if multi:
-                # each host seeds/verifies the candidates of its a-read
-                # shard; the gathered union re-sorts to the identical
-                # overlap stream (OverlapSet.sort_canonical)
-                local = overlapper.compute(dist.host_shard(len(preads)))
-                if primary_only:
-                    got = dist.gather_to_primary(local.to_bytes())
-                    overlaps_holder["ovl"] = OverlapSet.merge(
-                        [OverlapSet.from_bytes(b) for b in got]) \
-                        if got is not None else None
+            with span("overlap.compute"):
+                ov_cfg = OverlapperConfig(
+                    k=cfg.overlap.k, band=cfg.overlap.band,
+                    min_overlap=cfg.overlap.min_overlap,
+                    min_identity=cfg.overlap.min_identity,
+                    end_fuzz=cfg.overlap.end_fuzz)
+                overlapper = PreadOverlapper(preads, ov_cfg, device=dev)
+                if multi:
+                    # each host seeds/verifies the candidates of its a-read
+                    # shard; the gathered union re-sorts to the identical
+                    # overlap stream (OverlapSet.sort_canonical)
+                    local = overlapper.compute(dist.host_shard(len(preads)))
+                    if primary_only:
+                        got = dist.gather_to_primary(local.to_bytes())
+                        overlaps_holder["ovl"] = OverlapSet.merge(
+                            [OverlapSet.from_bytes(b) for b in got]) \
+                            if got is not None else None
+                    else:
+                        overlaps_holder["ovl"] = OverlapSet.merge(
+                            [OverlapSet.from_bytes(b)
+                             for b in dist.allgather_bytes(local.to_bytes())])
                 else:
-                    overlaps_holder["ovl"] = OverlapSet.merge(
-                        [OverlapSet.from_bytes(b)
-                         for b in dist.allgather_bytes(local.to_bytes())])
-            else:
-                overlaps_holder["ovl"] = overlapper.compute()
-            overlaps_holder["timings"] = overlapper.timings
+                    overlaps_holder["ovl"] = overlapper.compute()
+                overlaps_holder["timings"] = overlapper.timings
         return overlaps_holder["ovl"]
 
     def _draft(st: Stage):
@@ -140,7 +152,8 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         write_fasta(st.out("draft_p_ctg.fa"), recs)
         return {"n_draft": len(recs)}
 
-    draft_stage.run(_draft)
+    with span("stage.0-draft"):
+        draft_stage.run(_draft)
     draft = read_fasta(draft_stage.out("draft_p_ctg.fa"))
     contigs = [draft.row(i) for i in range(len(draft))]
 
@@ -172,35 +185,33 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
                     resume=cfg.resume)
                 if cfg.resume and probe.is_done() \
                         and os.path.exists(blob):
-                    _t0 = time.perf_counter()
-                    with open(blob, "rb") as fh:
+                    with span("align.reload") as sp, \
+                            open(blob, "rb") as fh:
                         _aln_cache["a"] = AlnSet.from_bytes(fh.read())
-                    metrics.log("align_reload",
-                                s=round(time.perf_counter() - _t0, 2))
+                    metrics.log("align_reload", s=round(sp.s, 2))
                     return _aln_cache["a"]
-            _t0 = time.perf_counter()
-            aligner = ReadToContigAligner(contigs, AlignerConfig(
-                k=cfg.align.k, band=cfg.align.band,
-                window_pad=cfg.align.window_pad,
-                min_identity=cfg.align.min_identity,
-                batch_pairs=cfg.align.batch_pairs), device=dev)
-            if multi:
-                # host-sharded alignment: each host seeds + DP-verifies
-                # its read shard, then routes each record to its
-                # contig's OWNER; the owner's canonical merge equals the
-                # one-host records of those contigs
-                local = aligner.align_batch(
-                    preads, read_range=dist.host_shard(len(preads)))
-                rec_owner = owners[local.ctg]
-                blobs = [local.subset(rec_owner == d).to_bytes()
-                         for d in range(n_hosts)]
-                _aln_cache["a"] = AlnSet.merge(
-                    [AlnSet.from_bytes(b)
-                     for b in dist.exchange_to_owners(blobs)])
-            else:
-                _aln_cache["a"] = aligner.align_batch(preads)
-            metrics.log("align_compute",
-                        s=round(time.perf_counter() - _t0, 2),
+            with span("align.compute") as sp:
+                aligner = ReadToContigAligner(contigs, AlignerConfig(
+                    k=cfg.align.k, band=cfg.align.band,
+                    window_pad=cfg.align.window_pad,
+                    min_identity=cfg.align.min_identity,
+                    batch_pairs=cfg.align.batch_pairs), device=dev)
+                if multi:
+                    # host-sharded alignment: each host seeds + DP-verifies
+                    # its read shard, then routes each record to its
+                    # contig's OWNER; the owner's canonical merge equals
+                    # the one-host records of those contigs
+                    local = aligner.align_batch(
+                        preads, read_range=dist.host_shard(len(preads)))
+                    rec_owner = owners[local.ctg]
+                    blobs = [local.subset(rec_owner == d).to_bytes()
+                             for d in range(n_hosts)]
+                    _aln_cache["a"] = AlnSet.merge(
+                        [AlnSet.from_bytes(b)
+                         for b in dist.exchange_to_owners(blobs)])
+                else:
+                    _aln_cache["a"] = aligner.align_batch(preads)
+            metrics.log("align_compute", s=round(sp.s, 2),
                         **aligner.timings)
         return _aln_cache["a"]
 
@@ -267,7 +278,8 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         metrics.log("align", n_aligned=len(r2c), n_reads=len(preads))
         return {"n_aligned": len(r2c)}
 
-    align_stage.run(_track)
+    with span("stage.1-align"):
+        align_stage.run(_track)
 
     # ---- stage 2: per-contig phasing (fc_phasing role), resumable
     n_reads = len(preads)
@@ -294,24 +306,22 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         if mesh is not None:
             logger.info("phasing over mesh %s", mesh)
         aln = get_aln()
-        _t0 = time.perf_counter()
         my_ctgs = (np.nonzero(owners == my_host)[0] if multi
                    else np.arange(len(contigs)))
-        if mesh is None:
-            # grouped batched device ops: a few rounds for ALL contigs
-            phs = phase_contigs_batched(
-                aln, [int(c) for c in my_ctgs],
-                [len(contigs[int(c)]) for c in my_ctgs], ph_cfg,
-                device=dev)
-        else:
-            phase_ops = ShardedPhaseOps(mesh)
-            phs = [phase_contig_device(aln, int(ci),
-                                       len(contigs[int(ci)]), ph_cfg,
-                                       device=dev, phase_ops=phase_ops)
-                   for ci in my_ctgs]
-        metrics.log("phasing_total",
-                    s=round(time.perf_counter() - _t0, 2),
-                    n_ctgs=len(my_ctgs))
+        with span("phasing.compute") as sp:
+            if mesh is None:
+                # grouped batched device ops: a few rounds for ALL contigs
+                phs = phase_contigs_batched(
+                    aln, [int(c) for c in my_ctgs],
+                    [len(contigs[int(c)]) for c in my_ctgs], ph_cfg,
+                    device=dev)
+            else:
+                phase_ops = ShardedPhaseOps(mesh)
+                phs = [phase_contig_device(aln, int(ci),
+                                           len(contigs[int(ci)]), ph_cfg,
+                                           device=dev, phase_ops=phase_ops)
+                       for ci in my_ctgs]
+        metrics.log("phasing_total", s=round(sp.s, 2), n_ctgs=len(my_ctgs))
         phase_rows = []
         for ci, ph in zip(my_ctgs, phs):
             phase_rows.append(phased_reads_table(ph))
@@ -342,7 +352,9 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
                              f"{_read_name(preads, int(rid))}\n")
         return {"n_phased": int((read_block >= 0).sum())}
 
-    if not phasing_stage.run(_phase):
+    with span("stage.2-phasing"):
+        phased_now = phasing_stage.run(_phase)
+    if not phased_now:
         # resume: rebuild the per-read phase arrays from the stage output
         name_to_id = {_read_name(preads, r): r for r in range(n_reads)}
         with open(phased_path) as fh:
@@ -364,11 +376,12 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         # string graph is global); other hosts take part in the
         # collective overlap compute, keep nothing, and wait at the
         # final barrier
-        _t0 = time.perf_counter()
-        if ovl_prefetch is not None:
-            ovl_prefetch.get()      # join the dataflow handle; re-raises
-        ovl = _compute_overlaps(primary_only=True)
-        metrics.log("hasm_overlaps", s=round(time.perf_counter() - _t0, 2),
+        with span("hasm.overlaps") as sp:
+            if ovl_prefetch is not None:
+                with span("hasm.join_wait"):
+                    ovl_prefetch.get()  # join the dataflow handle; re-raises
+            ovl = _compute_overlaps(primary_only=True)
+        metrics.log("hasm_overlaps", s=round(sp.s, 2),
                     **overlaps_holder.get("timings", {}))
         if multi and not dist.is_primary_host():
             return {}
@@ -406,36 +419,38 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
                           fuzz=cfg.graph.fuzz,
                           reduction_fuzz=cfg.graph.reduction_fuzz,
                           max_bubble_steps=cfg.graph.max_bubble_steps))
-        _t0 = time.perf_counter()
-        res = uz.unzip(ovl, keep)
-        metrics.log("hasm_graph_walk",
-                    s=round(time.perf_counter() - _t0, 2),
+        with span("hasm.graph_walk") as sp:
+            res = uz.unzip(ovl, keep)
+        metrics.log("hasm_graph_walk", s=round(sp.s, 2),
                     n_rescues=uz.n_rescues, n_fills=uz.n_fills)
 
         # ---- optional haplotig dedup (fc_dedup_h_tigs role); the
         # verbatim dedup and placement code builds its aligners without
         # a device argument, so they run inside the device scope
-        _t0 = time.perf_counter()
-        if cfg.graph.dedup and res.h_ctg:
-            from ..models.dedup import dedup_haplotigs
-            p_b = SeqBatch.from_strs([sq for _, sq, _ in res.p_ctg])
-            h_b = SeqBatch.from_strs([h.seq for h in res.h_ctg])
-            with _device.scope(dev):
-                kept = set(dedup_haplotigs(
-                    p_b, h_b, max_identity=cfg.graph.dedup_max_identity))
-            dropped = len(res.h_ctg) - len(kept)
-            res.h_ctg = [h for i, h in enumerate(res.h_ctg) if i in kept]
-            metrics.log("dedup", n_dropped=dropped, n_kept=len(res.h_ctg))
+        with span("hasm.dedup") as sp:
+            if cfg.graph.dedup and res.h_ctg:
+                from ..models.dedup import dedup_haplotigs
+                p_b = SeqBatch.from_strs([sq for _, sq, _ in res.p_ctg])
+                h_b = SeqBatch.from_strs([h.seq for h in res.h_ctg])
+                with _device.scope(dev):
+                    kept = set(dedup_haplotigs(
+                        p_b, h_b,
+                        max_identity=cfg.graph.dedup_max_identity))
+                dropped = len(res.h_ctg) - len(kept)
+                res.h_ctg = [h for i, h in enumerate(res.h_ctg)
+                             if i in kept]
+                metrics.log("dedup", n_dropped=dropped,
+                            n_kept=len(res.h_ctg))
 
-        metrics.log("hasm_dedup", s=round(time.perf_counter() - _t0, 2))
+        metrics.log("hasm_dedup", s=round(sp.s, 2))
 
         # ---- haplotig placement by re-alignment (SURVEY.md §3.3 step 3)
-        _t0 = time.perf_counter()
-        with _device.scope(dev):
-            m4 = place_haplotigs(res.p_ctg, res.h_ctg,
-                                 band=max(512, cfg.align.band))
-        write_m4(os.path.join(out, "h_ctg_placements.m4"), m4)
-        metrics.log("hasm_placement", s=round(time.perf_counter() - _t0, 2))
+        with span("hasm.placement") as sp:
+            with _device.scope(dev):
+                m4 = place_haplotigs(res.p_ctg, res.h_ctg,
+                                     band=max(512, cfg.align.band))
+            write_m4(os.path.join(out, "h_ctg_placements.m4"), m4)
+        metrics.log("hasm_placement", s=round(sp.s, 2))
 
         # ---- graph + overlap intermediates
         # (sg_edges_list / utg_data / ctg_paths / sg.gfa / LA dump)
@@ -471,13 +486,14 @@ def _run_unzip(cfg: PipelineConfig, dev) -> dict:
         metrics.log("unzip", p=p_stats, h=h_stats)
         return {"p_ctg": p_stats, "h_ctg": h_stats}
 
-    hasm_stage.run(_hasm)
+    with span("stage.3-hasm"):
+        hasm_stage.run(_hasm)
     stats = hasm_stage.metrics()
     logger.info("unzip done: %s primary, %s haplotigs",
                 stats.get("p_ctg"), stats.get("h_ctg"))
     if multi:   # canonical artifacts complete before any host reads them
         dist.barrier("unzip-done")
-    return {**stats, "out_dir": out}
+    return {**stats, "out_dir": out}, metrics
 
 
 def _read_name(batch, rid: int) -> str:

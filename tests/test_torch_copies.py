@@ -67,7 +67,6 @@ DEFS = {
         "_qv_table", "QV_TEMPLATE", "_qv_from_votes", "_stitch"],
     "pipeline/quiver.py": ["_phase_route_mask", "_emit"],
     "models/consensus.py": ["ConsensusConfig", "_bucket"],
-    "utils/profiling.py": ["StageTimer"],
     "parallel/distributed.py": ["pack_arrays", "unpack_arrays",
                                 "contig_owners"],
     "parallel/debug.py": ["enable", "enabled",
