@@ -21,7 +21,6 @@ import json
 import os
 import shutil
 import sys
-import time
 
 import numpy as np
 
@@ -92,25 +91,20 @@ def _rows(out_dir: str, skip: int) -> list:
 
 
 def _job(ctx: dict, paths: dict, d: str) -> dict:
-    """One job in directory d; its stage rows and calls' spans."""
+    """One job in directory d; its stage rows."""
     import torch
     from falcon_unzip_tpu_torch.pipeline.quiver import run_quiver
     from falcon_unzip_tpu_torch.pipeline.unzip import run_unzip
     cfg = _pipeline_cfg(ctx, paths, d)
     dev = ctx["device"]
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    spans, stages = [], {}
+    stages = {}
     for part, call in (("unzip", run_unzip), ("quiver", run_quiver)):
         skip = sum(len(v) for v in stages.values())
-        t = time.time()
         call(cfg, dev)
         sync()
-        spans.append((part, t, time.time()))
         stages[part] = _rows(d, skip)
-    for part, rows in stages.items():
-        spans += [(r["stage"], r["ts"] - r["s"], r["ts"]) for r in rows
-                  if isinstance(r.get("s"), (int, float))]
-    return {"stages": stages, "spans": spans}
+    return {"stages": stages}
 
 
 def setup(ctx: dict) -> dict:

@@ -45,13 +45,14 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
 
-from benchmark import readers, slots, trace  # noqa: E402
+from benchmark import readers, slots, spans, trace  # noqa: E402
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
 SETUP_LIMIT_S = 240          # a slot's set-up, after which the run gives up
 DRAIN_LIMIT_S = 200          # the window and the last jobs
 THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+MAIN = "MainThread"          # the thread a slot runs its jobs on
 
 
 class RunError(RuntimeError):
@@ -154,19 +155,28 @@ def stop(procs: list) -> None:
             p.join()
 
 
-def _label(results: list, t: float) -> str:
-    """What the slots' hosts were doing at time t: per slot the shortest
-    stage span holding t, else its job, else nothing."""
+def host_spans(res: dict) -> list:
+    """A slot's host intervals, (name, start, end, thread): its jobs, on
+    the main thread, and the port's span rows in the slot's trace
+    (``fu_spans.*``; a traced run's only)."""
+    return [("job", r["start"], r["end"], MAIN) for r in res["records"]] + [
+        (r["stage"], r["t0"], r["ts"], r["thread"])
+        for r in spans.trace_rows(res)]
+
+
+def _label(hosts: list, t: float) -> str:
+    """What the slots' hosts were doing at time t: the innermost interval
+    holding t on each thread of each slot (``host_spans``), else "no job"."""
     names = set()
-    for res in results:
-        best = None
-        for rec in res["records"]:
-            spans = [("job", rec["start"], rec["end"])] + [
-                tuple(s) for s in rec.get("spans", [])]
-            for name, a, b in spans:
-                if a <= t <= b and (best is None or b - a < best[0]):
-                    best = (b - a, name)
-        names.add(best[1] if best else "no job")
+    for intervals in hosts:
+        inner: dict = {}
+        for name, a, b, thread in intervals:
+            if a <= t <= b and (thread not in inner
+                                or b - a < inner[thread][0]):
+                inner[thread] = (b - a, name)
+        names.update(n for _, n in inner.values())
+        if not inner:
+            names.add("no job")
     return "+".join(sorted(names))
 
 
@@ -244,8 +254,9 @@ def summarize(spec: dict, run: dict, traced: bool, device: str,
                     acc[f] += v
         ctx["kernels"] = kern or None
         ops = sorted(merged["by_name"].items(), key=lambda kv: -kv[1])[:10]
+        hosts = [host_spans(res) for res in results]
         breakdown = {"device_ops": [[n[:160], s] for n, s in ops],
-                     "idle_gaps": [[_label(results, (a + b) / 2), b - a]
+                     "idle_gaps": [[_label(hosts, (a + b) / 2), b - a]
                                    for a, b in merged["gaps"][:10]]}
         metrics = {}
         for m in spec["per_layer"]:

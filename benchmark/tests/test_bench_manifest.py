@@ -41,6 +41,8 @@ def test_manifest_shape():
                                            w["traffic"] + ".json"))
         spec = run.cell_spec(w["name"])
         assert spec["per_layer"] and len(spec["end_to_end"]) >= 2
+        assert {p["name"] for p in spec["per_layer"]} == {
+            p["name"] for p in m["per_layer"] if w["name"] in p["workloads"]}
     for c in m["configs"]:
         assert c["file"].startswith("benchmark/")
         with open(os.path.join(ROOT, c["file"])) as fh:

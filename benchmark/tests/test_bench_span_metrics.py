@@ -92,3 +92,31 @@ def test_every_span_metric_is_in_the_manifest():
         moves = spans[name]["moves"]
         assert cell == (["ecoli_20x.falconsense"] if moves == "cns_qv"
                         else ["n50_25x.unzip_polish"])
+
+
+def test_gaps_are_labelled_by_each_threads_innermost_span(tmp_path):
+    """A slot's label at t is the innermost span on each of its threads,
+    from the slot's trace: the prefetch thread's ``overlap.cand`` beside
+    the main thread's ``hasm.join_wait``; a slot with no job then reads
+    "no job"."""
+    def trace(name, *spans):
+        rows = [{"stage": n, "id": i, "t0": a, "ts": b, "s": b - a,
+                 "thread": th} for i, (n, a, b, th) in enumerate(spans)]
+        path = tmp_path / name
+        path.write_text(json.dumps({"traceEvents": [], "fu_spans.3": rows}))
+        return {"path": str(path), "wall": (0.0, 0.0)}
+    pre = "df-overlap-compute"
+    results = [
+        {"records": [{"start": 0.0, "end": 100.0, "failed": False}],
+         "trace": trace("asm.json", ("run_unzip", 1, 90, "MainThread"),
+                        ("stage.3-hasm", 10, 60, "MainThread"),
+                        ("hasm.join_wait", 20, 50, "MainThread"),
+                        ("overlap.compute", 5, 55, pre),
+                        ("overlap.cand", 15, 45, pre))},
+        {"records": [{"start": 1.0, "end": 2.0, "failed": False}],
+         "trace": trace("cns.json", ("cns.seed", 1.1, 1.9, "MainThread"),
+                        ("falconsense", 1.0, 1.95, "MainThread"))}]
+    hosts = [run.host_spans(res) for res in results]
+    assert run._label(hosts, 30.0) == "hasm.join_wait+no job+overlap.cand"
+    assert run._label(hosts, 1.5) == "cns.seed+run_unzip"
+    assert run._label(hosts, 0.5) == "job+no job"
