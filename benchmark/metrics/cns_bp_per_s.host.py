@@ -1,6 +1,7 @@
 """Seed-read bases corrected a second, every slot's requests together, in
-the traced run: the cell's rate on the host's clock, too noisy from run to
-run on a shared host to bound end to end."""
+the traced run: the traced twin of the end-to-end ``cns_bp_per_s``, read
+the same way (``readers.rate``) from the untraced run.  Its ratio to the
+untraced rate is what tracing costs."""
 from benchmark.readers import rate
 
 

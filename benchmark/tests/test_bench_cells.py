@@ -76,6 +76,7 @@ def test_cell_runs_and_prints_the_result_line(capsys, checkout, cell,
     else:
         assert sorted(line["metrics"]) == sorted(m["name"]
                                                  for m in spec["end_to_end"])
+        assert all(v["value"] > 0 for v in line["metrics"].values())
     assert line["device"]["platform"] == "cpu"
     for name, c in line["checks"].items():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]

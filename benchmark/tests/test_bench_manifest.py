@@ -57,6 +57,30 @@ def test_manifest_shape():
             assert p["unit"] == "%"
 
 
+CNS_LAYER = ["cns_bp_per_s.host", "device_idle_pct.cns",
+             "wavefront_roofline.cns", "cns.seed_s_per_mb",
+             "cns.dp_s_per_mb", "cns.dp_wait_pct", "cns.vote_s_per_mb",
+             "host_cpu_pct.cns"]
+
+
+def test_the_consensus_rate_is_end_to_end_and_its_layers_move_it():
+    """The consensus cell bounds its rate end to end, and each of its
+    per-layer metrics moves that rate, so none is dropped from its spec."""
+    spec = run.cell_spec("ecoli_20x.falconsense")
+    e2e = {e["name"]: e for e in spec["end_to_end"]}
+    assert set(e2e) == {"cns_qv", "cns_bp_per_s", "setup_s"}
+    rate = e2e["cns_bp_per_s"]
+    assert 0.01 <= rate["bound"] <= 0.25
+    assert (rate["unit"], rate["better"], rate["source"]) == (
+        "bp/s", "higher", "host_clock")
+    layer = {p["name"]: p for p in spec["per_layer"]}
+    assert set(layer) == set(CNS_LAYER)
+    assert all(layer[n]["moves"] == "cns_bp_per_s" for n in CNS_LAYER)
+    assert "cns_bp_per_s" not in {
+        e["name"] for e in run.cell_spec("n50_25x.unzip_polish")[
+            "end_to_end"]}
+
+
 def test_new_config_traffic_and_metric_are_found_by_name(tmp_path):
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",

@@ -89,9 +89,12 @@ def test_every_span_metric_is_in_the_manifest():
     assert set(WANT) <= set(spans)
     for name in WANT:
         cell = spans[name]["workloads"]
-        moves = spans[name]["moves"]
-        assert cell == (["ecoli_20x.falconsense"] if moves == "cns_qv"
+        assert cell == (["ecoli_20x.falconsense"] if name.startswith("cns.")
+                        or name.endswith(".cns")
                         else ["n50_25x.unzip_polish"])
+        spec = run.cell_spec(cell[0])
+        assert spans[name]["moves"] in {m["name"] for m in spec["end_to_end"]}
+        assert name in {m["name"] for m in spec["per_layer"]}
 
 
 def test_gaps_are_labelled_by_each_threads_innermost_span(tmp_path):
