@@ -18,6 +18,16 @@ Host-side division of labor:
   ``contig_owners``),
 - host 0 gathers the final FASTA emission (``is_primary_host``).
 
+Each collective helper that moves data or waits runs inside a
+``dist.<helper>`` span (``utils.profiling.span``, recorded only while a
+profiler records).  Helpers nest (``exchange_to_owners`` runs
+``allgather_bytes`` once a destination, which runs ``all_gather_rows``
+twice), so only the leaves (``all_gather_rows``, ``all_reduce_sum``,
+``sync_stage_done``, ``barrier``) carry ``bytes_out`` (this host's
+payload) and ``bytes_in`` (what it received, padding included);
+``allgather_bytes`` adds the ``pad_bytes`` it chose.  In a one-process
+world the helpers return before any span.
+
 ``contig_owners``, ``pack_arrays`` and ``unpack_arrays`` are verbatim
 copies.  Launch with ``torchrun --nproc-per-node N`` (or set
 MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK); rank r runs on card
@@ -33,6 +43,8 @@ import socket
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -138,7 +150,8 @@ def barrier(tag: str) -> None:
     if process_count() == 1:
         return
     logger.debug("barrier %s", tag)
-    _tdist().barrier()
+    with span("dist.barrier", tag=tag, bytes_out=0, bytes_in=0):
+        _tdist().barrier()
 
 
 def sync_stage_done(done: bool) -> bool:
@@ -152,7 +165,11 @@ def sync_stage_done(done: bool) -> bool:
     if process_count() == 1:
         return done
     flag = torch.tensor([1 if done else 0], dtype=torch.int32)
-    _tdist().broadcast(flag, src=0)
+    primary = is_primary_host()
+    with span("dist.sync_stage_done",
+              bytes_out=flag.nbytes if primary else 0,
+              bytes_in=0 if primary else flag.nbytes):
+        _tdist().broadcast(flag, src=0)
     return bool(int(flag[0]))
 
 
@@ -162,7 +179,8 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if process_count() == 1:
         return x
     h = x.cpu().clone()
-    _tdist().all_reduce(h)
+    with span("dist.all_reduce_sum", bytes_out=h.nbytes, bytes_in=h.nbytes):
+        _tdist().all_reduce(h)
     return h.to(x.device)
 
 
@@ -173,7 +191,9 @@ def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
         return x
     h = x.cpu().contiguous()
     out = [torch.empty_like(h) for _ in range(process_count())]
-    _tdist().all_gather(out, h)
+    with span("dist.all_gather_rows", bytes_out=h.nbytes,
+              bytes_in=h.nbytes * len(out)):
+        _tdist().all_gather(out, h)
     return torch.cat(out).to(x.device)
 
 
@@ -188,13 +208,16 @@ def allgather_bytes(payload: bytes) -> list[bytes]:
     P = process_count()
     if P == 1:
         return [payload]
-    lens = all_gather_rows(torch.tensor([len(payload)], dtype=torch.int64))
-    cap = max(int(lens.max()), 1)
-    buf = torch.zeros(cap, dtype=torch.uint8)
-    if payload:
-        buf[: len(payload)] = torch.from_numpy(
-            np.frombuffer(payload, np.uint8).copy())
-    stacked = all_gather_rows(buf).reshape(P, cap).numpy()
+    with span("dist.allgather_bytes") as sp:
+        lens = all_gather_rows(torch.tensor([len(payload)],
+                                            dtype=torch.int64))
+        cap = max(int(lens.max()), 1)
+        sp.attrs["pad_bytes"] = P * cap - int(lens.sum())
+        buf = torch.zeros(cap, dtype=torch.uint8)
+        if payload:
+            buf[: len(payload)] = torch.from_numpy(
+                np.frombuffer(payload, np.uint8).copy())
+        stacked = all_gather_rows(buf).reshape(P, cap).numpy()
     return [stacked[i, : int(lens[i])].tobytes() for i in range(P)]
 
 
@@ -214,17 +237,21 @@ def exchange_to_owners(blobs: list[bytes]) -> list[bytes]:
         raise ValueError(f"{len(blobs)} blobs for {P} processes")
     me = process_index()
     mine: list[bytes] = []
-    for dest in range(P):
-        got = allgather_bytes(blobs[dest])
-        if dest == me:
-            mine = got
+    with span("dist.exchange_to_owners"):
+        for dest in range(P):
+            got = allgather_bytes(blobs[dest])
+            if dest == me:
+                mine = got
     return mine
 
 
 def gather_to_primary(payload: bytes) -> list[bytes] | None:
     """Gather one blob per host; only host 0 returns the list (others
     return None and retain nothing).  Collective — every host must call."""
-    got = allgather_bytes(payload)
+    if process_count() == 1:
+        return [payload]
+    with span("dist.gather_to_primary"):
+        got = allgather_bytes(payload)
     return got if is_primary_host() else None
 
 

@@ -15,8 +15,9 @@ records go to their contig's owner host, each host polishes the contigs
 it owns, and host 0 gathers and writes the canonical ``cns_*`` files
 (3-unzip is read from ``cfg.out_dir`` on every host).  With
 ``cfg.profile_dir`` set the whole run is traced (``utils.profiling``);
-while a profiler records, the run's host spans (the root ``run_quiver``,
-a ``stage.*`` span a Stage, ``align.*``, ``polish.*``) end
+while a profiler records, the run's host spans (the root ``run_quiver``
+with the process's ``rank`` and the ``world`` size, a ``stage.*`` span a
+Stage, ``align.*``, ``polish.*``, ``dist.*`` around each collective) end
 ``metrics.jsonl``, one row a span.
 
 Outputs (under <out>/4-polish/):
@@ -68,7 +69,8 @@ def run_quiver(cfg: PipelineConfig, device) -> dict:
 
 
 def _run_quiver(cfg: PipelineConfig, dev) -> dict:
-    with span("run_quiver"):
+    with span("run_quiver", rank=dist.process_index(),
+              world=dist.process_count()):
         stats, metrics = _quiver(cfg, dev)
     log_spans(metrics)
     return stats

@@ -11,9 +11,11 @@ owner host, each host phases the contigs it owns, and host 0 builds the
 graph and writes the canonical artifacts (the others write scratch
 under ``.host<k>/``).  With ``cfg.profile_dir`` set the whole run is
 traced (``utils.profiling``); while a profiler records, the run's host
-spans (``utils.profiling.span``: the root ``run_unzip``, a ``stage.*``
-span a Stage, ``align.*``, ``overlap.*`` on the prefetch's own thread,
-``hasm.*``) end ``metrics.jsonl``, one row a span.
+spans (``utils.profiling.span``: the root ``run_unzip``, which carries
+the process's ``rank`` and the ``world`` size, a ``stage.*`` span a
+Stage, ``align.*``, ``overlap.*`` on the prefetch's own thread,
+``hasm.*``, and ``dist.*`` around each collective of a world of
+processes) end ``metrics.jsonl``, one row a span.
 
 Outputs (under <out>/3-unzip/):
   all_p_ctg.fa, all_h_ctg.fa         — primary contigs + haplotigs
@@ -65,7 +67,8 @@ def run_unzip(cfg: PipelineConfig, device) -> dict:
 
 
 def _run_unzip(cfg: PipelineConfig, dev) -> dict:
-    with span("run_unzip"):
+    with span("run_unzip", rank=dist.process_index(),
+              world=dist.process_count()):
         stats, metrics = _unzip(cfg, dev)
     log_spans(metrics)
     return stats
